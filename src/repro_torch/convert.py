@@ -1,0 +1,77 @@
+"""Carry state across from numpy arrays — the way a ``repro`` corpus, index,
+state or fitted model enters the port.
+
+Each function takes plain numpy leaves (``np.asarray`` of the ``repro``
+object's fields), so this module needs nothing of ``repro``.  For a
+``repro`` FittedModel ``m``::
+
+    model = model_from_numpy(
+        np.asarray(m.index.means_t), np.asarray(m.index.moving),
+        int(m.index.params.t_th), float(m.index.params.v_th),
+        labels=m.labels, rho_self=m.rho_self, history=m.history)
+
+With these, a model fitted by ``repro`` classifies identically in the port,
+and a ``repro`` state steps identically.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.cluster.model import FittedModel
+from repro_torch.core.meanindex import (MeanIndex, StructuralParams,
+                                        build_mean_index)
+from repro_torch.core.update import KMeansState
+from repro_torch.sparse.matrix import SparseDocs
+
+
+def _t(a, dtype, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+
+def docs_from_numpy(ids, vals, nnz, dim: int, df=None, *,
+                    device="cuda") -> SparseDocs:
+    """Padded tuple arrays -> SparseDocs on ``device``."""
+    dev = resolve_device(device)
+    return SparseDocs(_t(ids, np.int32, dev), _t(vals, np.float32, dev),
+                      _t(nnz, np.int32, dev), int(dim),
+                      None if df is None else _t(df, np.int32, dev)
+                      ).validate()
+
+
+def index_from_numpy(means_t, moving, t_th, v_th, *,
+                     device="cuda") -> MeanIndex:
+    """(D, K) transposed means + moving flags + thresholds -> MeanIndex."""
+    dev = resolve_device(device)
+    return build_mean_index(_t(means_t, np.float32, dev),
+                            StructuralParams(int(t_th), float(v_th)),
+                            moving=_t(moving, np.bool_, dev))
+
+
+def state_from_numpy(means_t, moving, t_th, v_th, assign, rho_self,
+                     rho_self_prev, iteration, ub, *,
+                     device="cuda") -> KMeansState:
+    """The leaves of a ``repro`` KMeansState -> KMeansState."""
+    dev = resolve_device(device)
+    return KMeansState(
+        index=index_from_numpy(means_t, moving, t_th, v_th, device=dev),
+        assign=_t(assign, np.int32, dev),
+        rho_self=_t(rho_self, np.float32, dev),
+        rho_self_prev=_t(rho_self_prev, np.float32, dev),
+        iteration=int(iteration),
+        ub=_t(ub, np.float32, dev))
+
+
+def model_from_numpy(means_t, moving, t_th, v_th, *, labels=None,
+                     rho_self=None, history=(), algo: str = "esicp",
+                     device="cuda") -> FittedModel:
+    """The leaves of a ``repro`` FittedModel (or of its MeanIndex) ->
+    FittedModel."""
+    dev = resolve_device(device)
+    opt = lambda a, dt: None if a is None else _t(a, dt, dev)
+    history = list(history)
+    return FittedModel(
+        index=index_from_numpy(means_t, moving, t_th, v_th, device=dev),
+        labels=opt(labels, np.int32), rho_self=opt(rho_self, np.float32),
+        history=history, n_iter=len(history), algo=algo)

@@ -1,0 +1,190 @@
+"""EstParams — structural-parameter estimation (paper §V, Alg. 7);
+counterpart of ``repro.core.estparams``.
+
+Minimises J(s', v_h) = φ1 + φ2 + φ̃3 over a grid of (t_th, v_th)
+candidates, the approximate number of multiply-adds of the next
+assignment (see ``repro.core.estparams`` for the terms).
+
+Differences from ``repro``, all for size or determinism:
+
+* the v_th candidates are quantiles of the positive tail-region means;
+  ``repro`` calls ``jnp.nanquantile`` over the whole tail slice (about
+  9.9·10^8 elements at the NYT widths), which ``torch.quantile`` refuses
+  above 2^24 elements.  :func:`nanquantile` selects the positives row chunk
+  by row chunk, sorts them and interpolates at q·(n−1) in float32 exactly
+  as ``jnp.nanquantile`` does;
+* the per-term tables loop over the 24 thresholds in row chunks instead of
+  vmapping over a (D, K) temporary (meanindex.py);
+* the J table is accumulated in float64, so its argmin does not depend on
+  the reduction order of the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core.meanindex import (StructuralParams, delta_v_bar,
+                                        mean_value_stats, mfh_table,
+                                        row_chunks)
+from repro_torch.sparse.matrix import SparseDocs
+
+
+@dataclasses.dataclass(frozen=True)
+class EstGrid:
+    n_v: int = 24            # |V^[th]| candidates
+    n_s: int = 48            # t_th candidates
+    s_min_frac: float = 0.80  # s_(min) = frac · D
+    v_quantile_lo: float = 0.50
+    v_quantile_hi: float = 0.999
+    chunk: int = 2048        # objects per φ̃3 chunk
+
+
+def linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
+    """``jnp.linspace`` in float32 as its CPU build computes it, so the
+    candidate grids match ``repro``'s bit for bit.
+
+    XLA rewrites start·(1−t) + stop·t with t = i/(num−1) into
+    start·(1 − i·c) + i·(stop·c), c = float32(1/(num−1)), and fuses the
+    last product into the add (one rounding, reproduced here in float64,
+    which holds the float32 product exactly).  The endpoint is appended.
+    """
+    f32 = torch.float32
+    start = torch.tensor(float(start), dtype=f32)
+    stop = torch.tensor(float(stop), dtype=f32)
+    if num == 1:
+        return start.reshape(1)
+    i = torch.arange(num - 1, dtype=f32)
+    c = torch.tensor(1.0 / (num - 1), dtype=f32)
+    head = start * (1 - i * c)
+    out = (head.double() + i.double() * (stop * c).double()).to(f32)
+    return torch.cat([out, stop.reshape(1)])
+
+
+def nanquantile(values: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
+    """Linear-interpolation quantiles of a 1-D float32 sample (the NaNs
+    already dropped), with ``jnp.nanquantile``'s float32 arithmetic:
+    position q·(n−1), weights (1−frac, frac).  An empty sample gives NaN."""
+    vals, _ = torch.sort(values.to(torch.float32))
+    qs = qs.to(torch.float32).to(vals.device)
+    n = vals.numel()
+    if n == 0:
+        return torch.full_like(qs, torch.nan)
+    pos = qs * torch.tensor(float(n - 1), dtype=torch.float32,
+                            device=vals.device)
+    low = torch.floor(pos)
+    high = torch.ceil(pos)
+    hw = pos - low
+    lw = 1 - hw
+    lo = torch.clamp(low, 0, n - 1).long()
+    hi = torch.clamp(high, 0, n - 1).long()
+    # jnp computes low·lw + high·hw with the second product fused into the
+    # add (one rounding); float64 holds the float32 product exactly, so the
+    # sum below rounds once, the same way.
+    low_part = (vals[lo] * lw).double()
+    return (low_part + vals[hi].double() * hw.double()).to(torch.float32)
+
+
+def positive_tail(means_t: torch.Tensor, s_min: int) -> torch.Tensor:
+    """1-D float32 positives of rows [s_min, D), gathered row chunk by row
+    chunk (their order is irrelevant: they are sorted next)."""
+    d, k = means_t.shape
+    parts = []
+    for s, e in row_chunks(d - s_min, k):
+        blk = means_t[s_min + s:s_min + e]
+        parts.append(blk[blk > 0])
+    return torch.cat(parts) if parts else means_t.new_zeros((0,))
+
+
+def _v_candidates(means_t: torch.Tensor, s_min: int,
+                  grid: EstGrid) -> list[float]:
+    qs = linspace_f32(grid.v_quantile_lo, grid.v_quantile_hi, grid.n_v)
+    cand = nanquantile(positive_tail(means_t, s_min), qs)
+    cand = torch.where(torch.isnan(cand), 1.0, cand)   # degenerate -> vacuous
+    return torch.clamp(cand, min=1e-6).tolist()
+
+
+def _phi3_chunk(ids, vals, nnz, dvbar, colsum, rho_a, s_grid, *, k: int):
+    """φ̃3 contribution of one object chunk -> (S', H) float64."""
+    c, p = ids.shape
+    h = dvbar.shape[1]
+    live = torch.arange(p, device=ids.device)[None, :] < nnz[:, None]
+    u = torch.where(live, vals, 0.0).double()
+    idl = ids.long()
+
+    w = u[:, :, None] * dvbar[idl]                          # (C, P, H)
+    w = torch.where(live[:, :, None], w, 0.0)
+    suf = torch.flip(torch.cumsum(torch.flip(w, [1]), dim=1), [1])
+    suf = torch.cat([suf, suf.new_zeros((c, 1, h))], dim=1)
+
+    rho_bar = (u * colsum[idl]).sum(dim=1) / k              # Eq. 32
+    denom = torch.clamp(rho_a.double() - rho_bar, min=1e-9)
+
+    # p* = first tuple position with id >= s' (ids ascend within a row)
+    pstar = (live[:, :, None] & (ids[:, :, None] < s_grid[None, None, :])
+             ).sum(dim=1)                                   # (C, S')
+    nt_h = (nnz[:, None] - pstar).double()
+
+    dr = torch.gather(suf, 1, pstar[:, :, None].expand(-1, -1, h))
+    x = dr / denom[:, None, None]
+    log_ke = math.log(k / math.e)
+    factor = torch.clamp(torch.exp(x * log_ke), max=float(k))
+    return (nt_h[:, :, None] * factor).sum(dim=0)
+
+
+def _est_tables(df: torch.Tensor, means_t: torch.Tensor, grid: EstGrid):
+    """Candidate grids, φ1/φ2, and the per-term tables φ̃3 consumes."""
+    d, k = means_t.shape
+    dev = means_t.device
+    s_min = int(grid.s_min_frac * d)
+    s_grid = torch.unique(
+        linspace_f32(s_min, d, grid.n_s).to(torch.int32)).to(dev)
+    v_grid = _v_candidates(means_t, s_min, grid)
+
+    mf = torch.empty((d,), dtype=torch.float64, device=dev)
+    for s, e in row_chunks(d, k):
+        mf[s:e] = (means_t[s:e] > 0).sum(dim=1)
+    dff = df.to(dev, torch.float64)
+
+    c1 = torch.cat([dff.new_zeros((1,)), torch.cumsum(dff * mf, dim=0)])
+    phi1 = c1[s_grid.long()]                                # (S',)
+
+    mfh = mfh_table(means_t, v_grid).double()               # (D, H)
+    sfx = torch.flip(torch.cumsum(torch.flip(dff[:, None] * mfh, [0]),
+                                  dim=0), [0])
+    sfx = torch.cat([sfx, sfx.new_zeros((1, len(v_grid)))], dim=0)
+    phi2 = sfx[s_grid.long()]                               # (S', H)
+
+    dvbar = delta_v_bar(means_t, v_grid)                    # (D, H)
+    colsum = mean_value_stats(means_t)                      # (D,)
+    return s_grid, v_grid, phi1, phi2, dvbar, colsum
+
+
+def _est_minimize(s_grid, v_grid, phi1, phi2, phi3):
+    j_table = phi1[:, None] + phi2 + phi3
+    flat = int(torch.argmin(j_table))
+    si, hi = divmod(flat, j_table.shape[1])
+    params = StructuralParams(t_th=int(s_grid[si]), v_th=v_grid[hi])
+    aux = {"J": j_table, "s_grid": s_grid, "v_grid": v_grid,
+           "phi1": phi1, "phi2": phi2, "phi3": phi3}
+    return params, aux
+
+
+def estimate_params(docs: SparseDocs, df: torch.Tensor,
+                    means_t: torch.Tensor, rho_self: torch.Tensor, *, k: int,
+                    grid: EstGrid = EstGrid()):
+    """Returns the minimising StructuralParams and an aux dict (J table).
+
+    rho_self: (N,) ρ_{a(i)} against the current means — the update step's
+    refreshed self-similarities, what Alg. 7 consumes.
+    """
+    s_grid, v_grid, phi1, phi2, dvbar, colsum = _est_tables(df, means_t, grid)
+    phi3 = torch.zeros((len(s_grid), len(v_grid)), dtype=torch.float64,
+                       device=means_t.device)
+    for start in range(0, docs.n_docs, grid.chunk):
+        end = min(start + grid.chunk, docs.n_docs)
+        phi3 += _phi3_chunk(docs.ids[start:end], docs.vals[start:end],
+                            docs.nnz[start:end], dvbar, colsum,
+                            rho_self[start:end], s_grid, k=k)
+    return _est_minimize(s_grid, v_grid, phi1, phi2, phi3)

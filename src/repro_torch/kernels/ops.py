@@ -1,0 +1,178 @@
+"""One wrapper per kernel: check, allocate, dispatch, count.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs, and dispatches by the operands' device: CPU tensors go to the
+plain version in :mod:`repro_torch.kernels.ref`, CUDA tensors to the CUDA
+kernel on the current stream.  There is no fallback: a CUDA operand the
+kernel cannot take raises.
+
+``LAUNCHES`` counts kernel launches and ``PLAIN`` counts calls that went to
+a plain version, per kernel.  A run resets them with :func:`reset_counts`
+and reads them after, to show which path it took.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+
+KERNELS = ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
+           "sparse_sim")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+        PLAIN[name] = 0
+
+
+def _on_cuda(*tensors) -> bool:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _need(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+
+
+def _contiguous(*named) -> None:
+    for name, t in named:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous for the CUDA kernel")
+
+
+def _check_tuples(ids, vals):
+    _need(ids, "ids", torch.int32, 2)
+    _need(vals, "vals", torch.float32, 2)
+    if ids.shape != vals.shape:
+        raise ValueError(f"ids {tuple(ids.shape)} and vals "
+                         f"{tuple(vals.shape)} differ")
+
+
+def _check_gather(ids, vals, means_t):
+    _check_tuples(ids, vals)
+    _need(means_t, "means_t", torch.float32, 2)
+    on_cuda = _on_cuda(ids, vals, means_t)
+    if on_cuda:
+        _contiguous(("ids", ids), ("vals", vals), ("means_t", means_t))
+        from repro_torch.kernels.esicp_gather import library
+
+        if ids.shape[0] > library().gather_max_rows():
+            raise ValueError(f"{ids.shape[0]} rows exceed one gather launch; "
+                             "pass the rows in batches")
+    return on_cuda
+
+
+def sparse_sim(ids, vals, means_t, *, with_counts: bool = False):
+    """(B, K) float32 sims [and (B, K) int32 counts, else None]."""
+    if not _check_gather(ids, vals, means_t):
+        PLAIN["sparse_sim"] += 1
+        return ref.sparse_sim(ids, vals, means_t, with_counts=with_counts)
+    from repro_torch.kernels import sparse_sim as kern
+
+    b, k = ids.shape[0], means_t.shape[1]
+    sims = torch.empty((b, k), dtype=torch.float32, device=ids.device)
+    counts = (torch.empty((b, k), dtype=torch.int32, device=ids.device)
+              if with_counts else None)
+    if b and k:
+        kern.launch(ids, vals, means_t, means_t.shape[0], sims, counts)
+        LAUNCHES["sparse_sim"] += 1
+    return sims, counts
+
+
+def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False):
+    """(rho12, y, sims) float32 (B, K) [and int32 counts, else None]."""
+    if not _check_gather(ids, vals, means_t):
+        PLAIN["esicp_gather"] += 1
+        return ref.esicp_gather(ids, vals, means_t, t_th, v_th,
+                                with_counts=with_counts)
+    from repro_torch.kernels import esicp_gather as kern
+
+    b, k = ids.shape[0], means_t.shape[1]
+    out = lambda dt: torch.empty((b, k), dtype=dt, device=ids.device)
+    rho12, y, sims = out(torch.float32), out(torch.float32), out(torch.float32)
+    counts = out(torch.int32) if with_counts else None
+    if b and k:
+        kern.launch(ids, vals, means_t, means_t.shape[0], t_th, v_th, rho12,
+                    y, sims, counts)
+        LAUNCHES["esicp_gather"] += 1
+    return rho12, y, sims, counts
+
+
+def esicp_filter(rho12, y, rho_max, col_ok, v_th):
+    """(mask (B, K) bool, count (B,) int32)."""
+    _need(rho12, "rho12", torch.float32, 2)
+    _need(y, "y", torch.float32, 2)
+    _need(rho_max, "rho_max", torch.float32, 1)
+    _need(col_ok, "col_ok", torch.bool, 2)
+    if not (rho12.shape == y.shape == col_ok.shape
+            and rho_max.shape == rho12.shape[:1]):
+        raise ValueError("esicp_filter operands disagree in shape")
+    if not _on_cuda(rho12, y, rho_max, col_ok):
+        PLAIN["esicp_filter"] += 1
+        return ref.esicp_filter(rho12, y, rho_max, col_ok, v_th)
+    from repro_torch.kernels import esicp_filter as kern
+
+    _contiguous(("rho12", rho12), ("y", y), ("rho_max", rho_max),
+                ("col_ok", col_ok))
+    b, k = rho12.shape
+    mask = torch.empty((b, k), dtype=torch.bool, device=rho12.device)
+    count = torch.zeros((b,), dtype=torch.int32, device=rho12.device)
+    if b:
+        kern.launch(rho12, y, rho_max, col_ok, v_th, mask, count)
+        LAUNCHES["esicp_filter"] += 1
+    return mask, count
+
+
+def segment_update(assign, ids, vals, *, k: int, d: int):
+    """(D, K) float32 transposed cluster sums λ_t (assignments outside
+    [0, K) and dead slots contribute nothing)."""
+    _check_tuples(ids, vals)
+    _need(assign, "assign", torch.int32, 1)
+    if assign.shape[0] != ids.shape[0]:
+        raise ValueError("assign must have one entry per row")
+    if not _on_cuda(assign, ids, vals):
+        PLAIN["segment_update"] += 1
+        return ref.segment_update(assign, ids, vals, k, d)
+    from repro_torch.kernels import segment_update as kern
+
+    lam_t = torch.zeros((d, k), dtype=torch.float32, device=ids.device)
+    # Rows outside [0, K) and dead slots leave before any index is formed.
+    sel = ((assign >= 0) & (assign < k))[:, None] & (vals != 0)
+    keys = (ids.long() * k + assign.long()[:, None])[sel]
+    if keys.numel():
+        keys, order = torch.sort(keys, stable=True)
+        kern.launch(keys, vals[sel][order].contiguous(), lam_t)
+        LAUNCHES["segment_update"] += 1
+    return lam_t
+
+
+def rho_gather(assign, ids, vals, means_t):
+    """(B,) float32 ρ[b] = x_b·μ_{assign_b} (0 outside [0, K))."""
+    _check_tuples(ids, vals)
+    _need(assign, "assign", torch.int32, 1)
+    _need(means_t, "means_t", torch.float32, 2)
+    if assign.shape[0] != ids.shape[0]:
+        raise ValueError("assign must have one entry per row")
+    if not _on_cuda(assign, ids, vals, means_t):
+        PLAIN["rho_gather"] += 1
+        return ref.rho_gather(assign, ids, vals, means_t)
+    from repro_torch.kernels import rho_gather as kern
+
+    _contiguous(("assign", assign), ("ids", ids), ("vals", vals),
+                ("means_t", means_t))
+    out = torch.empty((ids.shape[0],), dtype=torch.float32, device=ids.device)
+    if ids.shape[0]:
+        kern.launch(assign, ids, vals, means_t, means_t.shape[0], out)
+        LAUNCHES["rho_gather"] += 1
+    return out

@@ -1,0 +1,132 @@
+"""Plain PyTorch versions of the five clustering kernels, in gather form.
+
+They are the CPU path (``kernels/ops.py`` sends CPU tensors here) and the
+oracle ``chip_smoke.py`` holds each CUDA kernel against on the card.  None
+densifies a (B, D) slab — at the NYT vocabulary that is 8 GB per 4096-row
+batch — and each bounds its temporaries by walking rows in chunks.
+
+Each function repeats its kernel's float32 arithmetic in the kernel's
+order, without fused multiply-adds, so kernel and plain version agree bit
+for bit where the kernel's order is fixed:
+
+* ``sparse_sim`` / ``esicp_gather`` — every (b, k) accumulator walks the
+  tuple slots p = 0..P-1 in order (``repro``'s TAAT scan order);
+* ``esicp_filter`` — elementwise;
+* ``segment_update`` — every λ entry sums its tuples in row order;
+* ``rho_gather`` — lane l of a 32-lane warp sums slots l, l+32, ... and a
+  butterfly folds the lanes.
+
+Conventions shared with the kernels: a slot is *live* iff its value is
+nonzero (a dead slot, id 0 and value 0, adds nothing anywhere, counts
+included); an assignment outside [0, K) selects no centroid.
+"""
+from __future__ import annotations
+
+import torch
+
+# Bound on the elements of one (rows, K) temporary.
+CHUNK_ELEMS = 1 << 24
+
+
+def _row_chunks(n_rows: int, width: int):
+    step = max(1, CHUNK_ELEMS // max(width, 1))
+    for s in range(0, n_rows, step):
+        yield s, min(s + step, n_rows)
+
+
+def sparse_sim(ids, vals, means_t, *, with_counts: bool = False):
+    """(B, K) sims = x·μ for every pair; counts = Σ_p live·[m > 0] (int32)
+    when asked, else None."""
+    b, p = ids.shape
+    k = means_t.shape[1]
+    sims = torch.zeros((b, k), dtype=torch.float32, device=ids.device)
+    counts = (torch.zeros((b, k), dtype=torch.int32, device=ids.device)
+              if with_counts else None)
+    for s, e in _row_chunks(b, k):
+        for q in range(p):
+            v = vals[s:e, q]
+            m = means_t[ids[s:e, q].long()]
+            sims[s:e] += v[:, None] * m
+            if with_counts:
+                counts[s:e] += ((m > 0) & (v != 0)[:, None]).to(torch.int32)
+    return sims, counts
+
+
+def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False):
+    """ES gathering phase (paper Alg. 3): per (b, k)
+
+      rho12 = Σ over the exact region (id < t_th, or m >= v_th) of v·m
+      y     = Σ over id >= t_th with m < v_th of v (absent m = 0 included)
+      sims  = x·μ
+      counts= Σ live·[m > 0 and exact]           (int32, when asked)
+
+    ``id`` is compared against ``t_th`` as float32, as the Pallas kernel
+    does.  Returns (rho12, y, sims, counts-or-None).
+    """
+    b, p = ids.shape
+    k = means_t.shape[1]
+    z = lambda dt: torch.zeros((b, k), dtype=dt, device=ids.device)
+    rho12, y, sims = z(torch.float32), z(torch.float32), z(torch.float32)
+    counts = z(torch.int32) if with_counts else None
+    t_th = float(t_th)
+    for s, e in _row_chunks(b, k):
+        for q in range(p):
+            v = vals[s:e, q]
+            idq = ids[s:e, q]
+            m = means_t[idq.long()]
+            c = v[:, None] * m
+            sims[s:e] += c
+            tail = (idq.to(torch.float32) >= t_th)[:, None]
+            exact = ~tail | (m >= v_th)
+            rho12[s:e] += torch.where(exact, c, 0.0)
+            y[s:e] += torch.where(exact, 0.0, v[:, None])
+            if with_counts:
+                counts[s:e] += (exact & (m > 0) & (v != 0)[:, None]).to(
+                    torch.int32)
+    return rho12, y, sims, counts
+
+
+def esicp_filter(rho12, y, rho_max, col_ok, v_th):
+    """ub = rho12 + y·v_th; mask = (ub > rho_max[b]) & col_ok (bool);
+    count[b] = Σ_k mask (int32)."""
+    ub = rho12 + y * v_th
+    mask = (ub > rho_max[:, None]) & col_ok
+    return mask, mask.sum(dim=1, dtype=torch.int32)
+
+
+def segment_update(assign, ids, vals, k: int, d: int):
+    """(D, K) cluster sums, transposed: λ_t[d, c] = Σ_b [assign_b = c]·x_b[d].
+
+    Rows whose assignment lies outside [0, K) are dropped before any
+    indexing (``repro``'s scatter drops them silently; ``index_add_``
+    would raise).  Duplicate ids within a row add up.
+    """
+    lam = torch.zeros(d * k, dtype=torch.float32, device=ids.device)
+    ok = (assign >= 0) & (assign < k)
+    for s, e in _row_chunks(ids.shape[0], ids.shape[1]):
+        sel = ok[s:e, None] & (vals[s:e] != 0)
+        flat = ids[s:e].long() * k + assign[s:e].long()[:, None]
+        lam.index_add_(0, flat[sel], vals[s:e][sel])
+    return lam.view(d, k)
+
+
+def rho_gather(assign, ids, vals, means_t):
+    """(B,) ρ[b] = x_b · μ_{assign_b}; 0 where assign_b lies outside [0, K)."""
+    b, p = ids.shape
+    k = means_t.shape[1]
+    ok = (assign >= 0) & (assign < k)
+    col = torch.where(ok, assign, 0).long()
+    lanes = -(-p // 32) * 32
+    out = torch.empty((b,), dtype=torch.float32, device=ids.device)
+    for s, e in _row_chunks(b, lanes):
+        prod = vals[s:e] * means_t[ids[s:e].long(), col[s:e, None]]
+        prod = torch.where(ok[s:e, None] & (vals[s:e] != 0), prod, 0.0)
+        prod = torch.nn.functional.pad(prod, (0, lanes - p))
+        prod = prod.view(e - s, lanes // 32, 32)
+        acc = torch.zeros((e - s, 32), dtype=torch.float32, device=ids.device)
+        for j in range(lanes // 32):
+            acc = acc + prod[:, j]
+        for off in (16, 8, 4, 2, 1):
+            acc = acc[:, :off] + acc[:, off:2 * off]
+        out[s:e] = acc[:, 0]
+    return out

@@ -1,0 +1,116 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips unless torch sees a CUDA device (decided
+inside the fixture, never at import).  Run on an H100 with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+The shapes cover what ``chip_smoke.py`` does not: K not a multiple of the
+1024-column tile, more tuple slots than one shared-memory pass holds
+(P > 512), row counts that are not a multiple of a block's 8 documents,
+K = 1, dead slots, duplicate ids and assignments outside [0, K).  Kernel
+and plain version add in the same order without fused multiply-adds, so
+they must agree bit for bit; the plain segment_update on the card uses
+atomics (``index_add_``), so λ is compared bitwise against the CPU plain
+version instead.  This file imports neither JAX nor ``repro``."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(37, 600, 2000, 1500), (4096, 64, 5000, 300), (9, 5, 50, 1)]
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(b, p, d, k, seed):
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(0, p + 1, b)
+    ids = np.zeros((b, p), np.int32)
+    vals = np.zeros((b, p), np.float32)
+    for i in range(b):
+        m = min(nnz[i], d)
+        ids[i, :m] = np.sort(rng.choice(d, m, replace=False))
+        vals[i, :m] = rng.random(m) + 0.05
+        if m >= 2 and i % 3 == 0:
+            ids[i, 1] = ids[i, 0]                    # duplicate id, both live
+    means = rng.random((d, k)).astype(np.float32)
+    means[rng.random((d, k)) < 0.6] = 0.0
+    assign = rng.integers(0, k, b).astype(np.int32)
+    assign[::5] = k
+    assign[1::7] = -1
+    t = lambda a: torch.from_numpy(a)
+    return t(ids), t(vals), t(means), t(assign)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gather_kernels_equal_plain(dev, shape):
+    ids, vals, means, _ = _inputs(*shape, seed=1)
+    t_th, v_th = int(0.7 * shape[2]), 0.4
+    g = [x.to(dev) for x in (ids, vals, means)]
+    ops.reset_counts()
+    got = ops.esicp_gather(*g, t_th, v_th, with_counts=True)
+    want = ref.esicp_gather(*g, t_th, v_th, with_counts=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    sims, counts = ops.sparse_sim(*g, with_counts=True)
+    w_sims, w_counts = ref.sparse_sim(*g, with_counts=True)
+    assert torch.equal(sims, w_sims) and torch.equal(counts, w_counts)
+    assert torch.equal(sims, got[2])
+    assert ops.LAUNCHES["esicp_gather"] == ops.LAUNCHES["sparse_sim"] == 1
+    assert ops.PLAIN["esicp_gather"] == ops.PLAIN["sparse_sim"] == 0
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_esicp_filter_equal_plain(dev, shape):
+    b, _, _, k = shape
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rho12 = torch.rand((b, k), generator=gen, device=dev)
+    y = torch.rand((b, k), generator=gen, device=dev)
+    rho_max = torch.rand((b,), generator=gen, device=dev) * 1.5
+    rho_max[0] = -torch.inf
+    col_ok = torch.rand((b, k), generator=gen, device=dev) < 0.7
+    got = ops.esicp_filter(rho12, y, rho_max, col_ok, 0.3)
+    want = ref.esicp_filter(rho12, y, rho_max, col_ok, 0.3)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_segment_update_bitwise(dev, shape):
+    b, _, d, k = shape
+    ids, vals, _, assign = _inputs(*shape, seed=3)
+    g = [x.to(dev) for x in (assign, ids, vals)]
+    one = ops.segment_update(*g, k=k, d=d)
+    two = ops.segment_update(*g, k=k, d=d)
+    assert torch.equal(one, two)                      # no atomics
+    assert torch.equal(one.cpu(), ref.segment_update(assign, ids, vals, k, d))
+    torch.testing.assert_close(one, ref.segment_update(*g, k, d), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rho_gather_equal_plain(dev, shape):
+    ids, vals, means, assign = _inputs(*shape, seed=4)
+    g = [x.to(dev) for x in (assign, ids, vals, means)]
+    got = ops.rho_gather(*g)
+    assert torch.equal(got, ref.rho_gather(*g))
+    assert torch.equal(got.cpu(), ref.rho_gather(assign, ids, vals, means))
+    assert bool((got[::5] == 0).all()) and bool((got[1::7] == 0).all())
+
+
+def test_cuda_operand_the_kernel_cannot_take_raises(dev):
+    ids, vals, means, _ = _inputs(8, 6, 40, 3, seed=5)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sparse_sim(ids.to(dev).t().contiguous().t(), vals.to(dev),
+                       means.to(dev))
+    with pytest.raises(ValueError, match="several devices"):
+        ops.sparse_sim(ids.to(dev), vals, means.to(dev))

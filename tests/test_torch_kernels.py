@@ -1,0 +1,165 @@
+"""The five kernels' plain versions (the CPU path of kernels/ops.py)
+against ``repro``: its jnp oracles (``repro.kernels.ref``) and its Pallas
+kernels run in interpret mode (``repro.kernels.ops``), at tiny
+block-aligned and non-aligned shapes.  The inputs hold dead slots (id 0,
+value 0), rows assigned K (which select nothing) and duplicate ids within a
+row.  Tolerances: 1e-5 for similarities, bound operands and ρ (float32 sums
+in another order than the MXU's), 1e-4 for the cluster sums λ, exact for
+masks and counts."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops, ref as jref  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+# (B, P, D, K): non-aligned, then block-aligned (b_blk 128, d_blk 256).
+SHAPES = [(20, 13, 300, 37), (128, 16, 512, 256)]
+
+
+def _inputs(b, p, d, k, seed):
+    rng = np.random.default_rng(seed)
+    nnz = rng.integers(0, p + 1, b)
+    nnz[0] = 0                                      # an empty row
+    ids = np.zeros((b, p), np.int32)
+    vals = np.zeros((b, p), np.float32)
+    for i in range(b):
+        row = np.sort(rng.choice(d, nnz[i], replace=False))
+        ids[i, :nnz[i]] = row
+        vals[i, :nnz[i]] = rng.random(nnz[i]) + 0.05
+    # duplicate ids within a row (both live) on a few rows
+    for i in range(1, b, 5):
+        if nnz[i] >= 2:
+            ids[i, 1] = ids[i, 0]
+    means = rng.random((d, k)).astype(np.float32)
+    means[rng.random((d, k)) < 0.6] = 0.0           # sparse, like real means
+    assign = rng.integers(0, k, b).astype(np.int32)
+    assign[::4] = k                                  # rows that select nothing
+    return ids, vals, means, assign
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sparse_sim_plain_matches_repro(shape):
+    ids, vals, means, _ = _inputs(*shape, seed=1)
+    sims, counts = ref.sparse_sim(_t(ids), _t(vals), _t(means),
+                                  with_counts=True)
+    want = np.asarray(jref.sparse_sim(ids, vals, means))
+    np.testing.assert_allclose(sims.numpy(), want, rtol=1e-5, atol=1e-5)
+    p_sims, p_counts = jops.sparse_sim(ids, vals, means, diag=True,
+                                       interpret=True)
+    np.testing.assert_allclose(sims.numpy(), np.asarray(p_sims), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(p_counts).astype(np.int32))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_esicp_gather_plain_matches_repro(shape):
+    ids, vals, means, _ = _inputs(*shape, seed=2)
+    d = shape[2]
+    t_th, v_th = int(0.6 * d), 0.5
+    rho12, y, sims, counts = ref.esicp_gather(
+        _t(ids), _t(vals), _t(means), t_th, v_th, with_counts=True)
+    w_rho12, w_y = jref.esicp_gather(ids, vals, means, t_th, v_th)
+    np.testing.assert_allclose(rho12.numpy(), np.asarray(w_rho12),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(w_y), rtol=1e-5,
+                               atol=1e-5)
+    p = jops.esicp_gather(ids, vals, means, jnp.int32(t_th),
+                          jnp.float32(v_th), with_sims=True, diag=True,
+                          interpret=True)
+    for got, want in zip((rho12, y, sims), p[:3]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(p[3]).astype(np.int32))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_esicp_filter_plain_matches_repro(shape):
+    b, _, _, k = shape
+    rng = np.random.default_rng(3)
+    rho12 = rng.random((b, k)).astype(np.float32)
+    y = rng.random((b, k)).astype(np.float32)
+    rho_max = rng.random(b).astype(np.float32) * 1.5
+    rho_max[0] = -np.inf                               # iteration-1 rows
+    col_ok = rng.random((b, k)) < 0.7
+    v_th = 0.3
+    mask, count = ref.esicp_filter(_t(rho12), _t(y), _t(rho_max), _t(col_ok),
+                                   v_th)
+    w_mask, w_count = jref.esicp_filter(rho12, y, rho_max, col_ok, v_th)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(w_mask) != 0)
+    np.testing.assert_array_equal(count.numpy(), np.asarray(w_count))
+    p_mask, p_count = jops.esicp_filter(rho12, y, rho_max, col_ok,
+                                        jnp.float32(v_th), interpret=True)
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(p_mask) != 0)
+    np.testing.assert_array_equal(count.numpy(), np.asarray(p_count))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_segment_update_plain_matches_repro(shape):
+    b, _, d, k = shape
+    ids, vals, _, assign = _inputs(*shape, seed=4)
+    lam_t = ref.segment_update(_t(assign), _t(ids), _t(vals), k, d)
+    assert lam_t.shape == (d, k)
+    want = np.asarray(jref.segment_update(assign, ids, vals, k, d))
+    np.testing.assert_allclose(lam_t.numpy().T, want, rtol=1e-4, atol=1e-4)
+    p = jops.segment_update(assign, ids, vals, k=k, d=d, interpret=True)
+    np.testing.assert_allclose(lam_t.numpy().T, np.asarray(p), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rho_gather_plain_matches_repro(shape):
+    ids, vals, means, assign = _inputs(*shape, seed=5)
+    rho = ref.rho_gather(_t(assign), _t(ids), _t(vals), _t(means))
+    want = np.asarray(jref.rho_gather(assign, ids, vals, means))
+    np.testing.assert_allclose(rho.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert (rho.numpy()[::4] == 0).all()             # assign = K reads 0
+    p = jops.rho_gather(assign, ids, vals, means, interpret=True)
+    np.testing.assert_allclose(rho.numpy(), np.asarray(p), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_segment_update_sums_in_row_order():
+    """λ is repro's scatter bit for bit: each entry sums its rows in order."""
+    ids, vals, _, assign = _inputs(64, 10, 50, 6, seed=6)
+    lam_t = ref.segment_update(_t(assign), _t(ids), _t(vals), 6, 50)
+    want = np.asarray(jnp.zeros((6, 50), jnp.float32)
+                      .at[assign[:, None], ids].add(vals))
+    np.testing.assert_array_equal(lam_t.numpy().T, want)
+
+
+def test_ops_dispatch_cpu_to_plain_versions():
+    """CPU operands go to the plain versions and count there; nothing
+    launches."""
+    ids, vals, means, assign = _inputs(20, 13, 300, 37, seed=7)
+    ti, tv, tm, ta = _t(ids), _t(vals), _t(means), _t(assign)
+    ops.reset_counts()
+    ops.sparse_sim(ti, tv, tm)
+    r12, y, _, _ = ops.esicp_gather(ti, tv, tm, 100, 0.5, with_counts=True)
+    ops.esicp_filter(r12, y, torch.zeros(20), torch.ones((20, 37),
+                                                         dtype=torch.bool),
+                     0.5)
+    ops.segment_update(ta, ti, tv, k=37, d=300)
+    ops.rho_gather(ta, ti, tv, tm)
+    assert ops.PLAIN == dict.fromkeys(ops.KERNELS, 1)
+    assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
+    ops.reset_counts()
+
+
+def test_ops_validate_operands():
+    ids, vals, means, assign = _inputs(8, 4, 30, 5, seed=8)
+    with pytest.raises(TypeError, match="ids must be"):
+        ops.sparse_sim(_t(ids).long(), _t(vals), _t(means))
+    with pytest.raises(TypeError, match="means_t must be"):
+        ops.rho_gather(_t(assign), _t(ids), _t(vals), _t(means).double())
+    with pytest.raises(ValueError, match="one entry per row"):
+        ops.segment_update(_t(assign)[:3], _t(ids), _t(vals), k=5, d=30)
