@@ -10,22 +10,37 @@ each of which fails the run on any error:
 1. device  — name, power limit and capability (must be 9.0);
 2. build   — every CUDA source under src/repro_torch/csrc/, one nvcc each,
              in parallel, into build/kernels/;
-3. kernels — each of the five kernels against its plain PyTorch version on
-             the card at the main path's shapes (B 4096, K 10,000,
-             D 495,126, P from the corpus), with the tolerance stated
-             beside it; segment_update run twice and held bitwise; times
-             from CUDA events;
-4. small   — one small fit + classify on the card and on the CPU (plain
-             versions): identical assignments after every iteration and
-             identical integer history;
+3. kernels — each of the five main-path kernels of the ES-ICP fit against
+             its plain PyTorch version on the card at the main path's
+             shapes (B 4096, K 10,000, D 495,126, P from the corpus), with
+             the tolerance stated beside it; segment_update run twice and
+             held bitwise; times from CUDA events;
+4. small   — small fits on the card and on the CPU (plain versions), all
+             nine algorithm modes (ES-ICP to convergence, the other eight
+             to ``--small-iter`` iterations), and a classify: identical
+             assignments after every iteration and identical integer
+             history (Mult, |Z|, changed, n_moving, t_th);
 5. main    — ``repro_torch.cluster.fit`` (ES-ICP, k 10,000, EstParams at
              iterations 1–2) and ``classify_docs`` on a synthetic corpus at
              the NYT widths of ``configs/nyt1m.py`` (vocab 495,126, nt_mean
              225.76), n_docs cut from 1,285,944 to ``--n-docs``.  Launch
              counters are zeroed just before and read just after: every
-             kernel must have launched and no plain version may have run;
+             kernel of the path must have launched and no plain version may
+             have run;
 6. breakdown — one more iteration from the fitted state, timed phase by
-             phase (assignment epoch, update step, EstParams).
+             phase (assignment epoch, update step, EstParams), here and
+             after each fit of phase 7;
+7. modes   — ``fit(..., algo="sketch")`` and ``fit(..., algo="bounds-esicp")``
+             at the same widths from the same seed rows, cut to
+             ``--mode-iter`` iterations, each with its counters zeroed just
+             before and read just after: both must give the ES-ICP fit's
+             assignment at every iteration, and a peak memory below three
+             (D, K) matrices;
+8. sketch kernels — sketch_sim, doc_sketch and the gather kernel's
+             per-row-threshold (``ta``) and squared-rows variants against
+             their plain versions, bit for bit, at B 4096, S 64, K 10,000,
+             D 495,126 on one corpus batch, with the bounds-esicp fit's
+             means, thresholds and ρ_self (v_ta = ρ_self / ||x||_1).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -58,6 +73,12 @@ REPLACES = {
     "segment_update": "src/repro/kernels/segment_update.py:61",
     "rho_gather": "src/repro/kernels/rho_gather.py:66",
     "sparse_sim": "src/repro/kernels/sparse_sim.py:152",
+    # TA has no Pallas kernel: repro's backend runs its TAAT scan there.
+    "esicp_gather_ta": "src/repro/kernels/esicp_gather.py:91",
+    "sparse_sim_square": "src/repro/kernels/sparse_sim.py:152",
+    # doc_sketch feeds sketch_sim; repro computes it with segment_sum.
+    "doc_sketch": "src/repro/kernels/sketch_sim.py:25",
+    "sketch_sim": "src/repro/kernels/sketch_sim.py:25",
 }
 SOURCES = {
     "esicp_gather": "src/repro_torch/csrc/gather.cu",
@@ -65,7 +86,21 @@ SOURCES = {
     "segment_update": "src/repro_torch/csrc/segment_update.cu",
     "rho_gather": "src/repro_torch/csrc/rho_gather.cu",
     "sparse_sim": "src/repro_torch/csrc/gather.cu",
+    "esicp_gather_ta": "src/repro_torch/csrc/gather.cu",
+    "sparse_sim_square": "src/repro_torch/csrc/gather.cu",
+    "doc_sketch": "src/repro_torch/csrc/sketch.cu",
+    "sketch_sim": "src/repro_torch/csrc/sketch.cu",
 }
+# The kernels each main-path run must launch.
+PATH_KERNELS = {
+    "esicp": ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
+              "sparse_sim"),
+    "sketch": ("sparse_sim", "doc_sketch", "sketch_sim", "segment_update",
+               "rho_gather"),
+    "bounds-esicp": ("esicp_gather", "esicp_filter", "doc_sketch",
+                     "sketch_sim", "segment_update", "rho_gather"),
+}
+INTS = ("mult", "n_candidates", "n_changed", "n_moving", "t_th")
 
 
 def log(msg: str) -> None:
@@ -324,34 +359,70 @@ def kernel_phase(torch, docs, seed: int):
     return rows
 
 
-def small_phase(torch, seed: int):
-    """The same small fit + classify on the card and on the CPU."""
+def _same_fits(torch, a, b, what: str) -> None:
+    """Identical iteration count, assignment after every iteration and
+    history integers."""
+    require(a.n_iter == b.n_iter,
+            f"{what}: iterations {a.n_iter} vs {b.n_iter}")
+    for r, (ha, hb, ta, tb) in enumerate(zip(a.history, b.history,
+                                             a.trajectory, b.trajectory)):
+        require(torch.equal(ta, tb),
+                f"{what}: assignments differ at iteration {r + 1}")
+        require(all(ha[f] == hb[f] for f in INTS)
+                and ha["v_th"] == hb["v_th"],
+                f"{what}: history differs at iteration {r + 1}: {ha} vs {hb}")
+
+
+def small_phase(torch, seed: int, small_iter: int):
+    """The same small fits (all nine modes) + classify on the card and on
+    the CPU.  Returns the launches of the TA and CS fits on the card (the
+    only fits that run the gather kernel's ta and square variants)."""
     from repro_torch.cluster import ClusterConfig, classify_docs, fit
+    from repro_torch.core.assignment import ALGORITHMS
     from repro_torch.core.lloyd import lloyd_fit
     from repro_torch.core.update import draw_seed_rows
     from repro_torch.data import CorpusSpec, make_corpus
+    from repro_torch.kernels import ops
 
-    t0 = phase("small cross-check (cuda vs cpu)")
+    t0 = phase("small cross-check (cuda vs cpu), nine modes")
     docs, df, _, _ = make_corpus(CorpusSpec(n_docs=3000, vocab=4096,
                                             nt_mean=60, n_topics=16,
                                             seed=seed), device="cpu")
     k = 32
     rows = draw_seed_rows(docs.n_docs, k, seed=seed)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        runs[dev] = lloyd_fit(docs, k=k, algo="esicp", batch_size=1024,
-                              max_iter=30, seed_rows=rows, df=df, device=dev,
-                              keep_trajectory=True)
-    a, b = runs["cuda"], runs["cpu"]
-    ints = ("mult", "n_candidates", "n_changed", "n_moving", "t_th")
-    require(a.n_iter == b.n_iter, f"iterations {a.n_iter} vs {b.n_iter}")
-    for r, (ha, hb, ta, tb) in enumerate(zip(a.history, b.history,
-                                             a.trajectory, b.trajectory)):
-        require(torch.equal(ta, tb), f"assignments differ at iteration {r+1}")
-        require(all(ha[f] == hb[f] for f in ints) and ha["v_th"] == hb["v_th"],
-                f"history differs at iteration {r+1}: {ha} vs {hb}")
-        log(f"  iter {r+1}: mult {ha['mult']} changed {ha['n_changed']} "
-            f"objective cuda {ha['objective']:.6f} cpu {hb['objective']:.6f}")
+    variant_launches = {}
+    fits = {}
+    for algo in ["esicp"] + [a for a in ALGORITHMS if a != "esicp"]:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            ops.reset_counts()
+            runs[dev] = lloyd_fit(
+                docs, k=k, algo=algo, batch_size=1024,
+                max_iter=30 if algo == "esicp" else small_iter,
+                seed_rows=rows, df=df, device=dev, keep_trajectory=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                for name in ("esicp_gather_ta", "sparse_sim_square"):
+                    if ops.LAUNCHES[name]:
+                        variant_launches[name] = (ops.LAUNCHES[name], algo)
+        a, b = runs["cuda"], runs["cpu"]
+        _same_fits(torch, a, b, algo)
+        fits[algo] = b
+        if algo == "esicp":
+            for r, (ha, hb) in enumerate(zip(a.history, b.history)):
+                log(f"  esicp iter {r+1}: mult {ha['mult']} changed "
+                    f"{ha['n_changed']} objective cuda {ha['objective']:.6f}"
+                    f" cpu {hb['objective']:.6f}")
+        else:
+            log(f"  {algo}: identical over {a.n_iter} iterations; mult per "
+                f"iteration {[h['mult'] for h in a.history]}")
+    # Every mode gives MIVI's assignments (exact by contract).
+    for algo, res in fits.items():
+        for r, (x, y) in enumerate(zip(res.trajectory,
+                                       fits["mivi"].trajectory)):
+            require(torch.equal(x, y),
+                    f"{algo} differs from mivi at iteration {r + 1}")
+    b = fits["esicp"]
     model = fit(docs, ClusterConfig(k=k, max_iter=30, batch_size=1024),
                 df=df, seed_rows=rows)
     ca, _ = classify_docs(model.index, docs)
@@ -359,8 +430,13 @@ def small_phase(torch, seed: int):
     require(torch.equal(ca.cpu(), cb), "classify differs between cuda and cpu")
     require(torch.equal(model.labels.cpu(), b.assign),
             "fit() labels differ from the cpu lloyd_fit")
-    log(f"identical over {a.n_iter} iterations and classify "
-        f"({time.perf_counter() - t0:.1f} s)")
+    require(sorted(variant_launches) == ["esicp_gather_ta",
+                                         "sparse_sim_square"],
+            f"the ta/square variants did not launch: {variant_launches}")
+    log(f"nine modes identical cuda vs cpu and equal to mivi; classify "
+        f"identical ({time.perf_counter() - t0:.1f} s); variant launches "
+        f"{variant_launches}")
+    return variant_launches
 
 
 def main_phase(torch, docs, df, max_iter: int):
@@ -373,7 +449,8 @@ def main_phase(torch, docs, df, max_iter: int):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
     model = fit(docs, ClusterConfig(k=NYT_K, algo="esicp", max_iter=max_iter,
-                                    batch_size=BATCH), df=df)
+                                    batch_size=BATCH), df=df,
+                keep_trajectory=True)
     fit_counts = dict(ops.LAUNCHES)
     t_cls = time.perf_counter()
     labels, sims = classify_docs(model.index, docs, batch_size=BATCH)
@@ -397,7 +474,7 @@ def main_phase(torch, docs, df, max_iter: int):
         f"per classify: "
         f"{ {k: launches[k] - fit_counts[k] for k in launches} }")
     log(f"  plain-version calls: {plain}")
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[n] > 0 for n in PATH_KERNELS["esicp"]),
             f"a kernel never launched on the main path: {launches}")
     require(all(v == 0 for v in plain.values()),
             f"a plain version ran on the main path: {plain}")
@@ -414,15 +491,19 @@ def main_phase(torch, docs, df, max_iter: int):
     return launches, model
 
 
-def breakdown_phase(torch, docs, df, model):
+def breakdown_phase(torch, docs, df, model, algo: str = "esicp",
+                    est: bool = True):
     """Where one more iteration's time goes, phase by phase (host clock
-    around work that ends in a synchronize), from the fitted state."""
+    around work that ends in a synchronize), from the fitted state.  The
+    bounds start unknown (+inf), so a bounds mode's epoch prunes no group
+    (its time does not depend on that: the exact sims are computed in
+    full either way)."""
     from repro_torch.core.backends import KernelBackend
     from repro_torch.core.estparams import estimate_params
     from repro_torch.core.lloyd import _epoch
     from repro_torch.core.update import KMeansState, n_ub_groups, update_step
 
-    phase("breakdown of one more iteration")
+    phase(f"breakdown of one more {algo} iteration")
     n = docs.n_docs
     state = KMeansState(
         index=model.index, assign=model.labels, rho_self=model.rho_self,
@@ -440,16 +521,173 @@ def breakdown_phase(torch, docs, df, model):
         return res
 
     assign, ub, _, _, _ = timed("assignment epoch", lambda: _epoch(
-        "esicp", bk, docs, state, BATCH))
+        algo, bk, docs, state, BATCH))
     new = timed("update step", lambda: update_step(
         docs, assign, state.assign, state, state.index.params, k=NYT_K,
         backend=bk, ub=ub))
     del state
-    timed("EstParams", lambda: estimate_params(
-        docs, df, new.index.means_t, new.rho_self, k=NYT_K))
+    if est:
+        timed("EstParams", lambda: estimate_params(
+            docs, df, new.index.means_t, new.rho_self, k=NYT_K))
     for name, sec in out.items():
         log(f"  {name}: {sec:.3f} s")
     return out
+
+
+def mode_phase(torch, docs, df, algo: str, max_iter: int, esicp_traj):
+    """fit(..., algo) at the NYT widths from the ES-ICP fit's seed rows:
+    the same assignment at every iteration, its path's kernels launched,
+    no plain version run, no third (D, K) matrix."""
+    from repro_torch.cluster import ClusterConfig, fit
+    from repro_torch.kernels import ops
+
+    t0 = phase(f"main path: fit k={NYT_K} {algo}, max_iter {max_iter}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    model = fit(docs, ClusterConfig(k=NYT_K, algo=algo, max_iter=max_iter,
+                                    batch_size=BATCH), df=df,
+                keep_trajectory=True)
+    torch.cuda.synchronize()
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    peak = torch.cuda.max_memory_allocated()
+    matrix = docs.dim * NYT_K * 4
+    for h in model.history:
+        log("  " + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                               for k, v in h.items()}))
+    log(f"  seconds per iteration: "
+        f"{[round(h['elapsed_s'], 3) for h in model.history]}")
+    log(f"  Mult per iteration: {[h['mult'] for h in model.history]}")
+    log(f"  |Z| per iteration: {[h['n_candidates'] for h in model.history]}")
+    log(f"  peak device memory: {peak / 2**30:.2f} GiB "
+        f"({peak / matrix:.3f} (D, K) matrices of {matrix / 2**30:.2f} GiB)")
+    n_iter = len(model.history)
+    log(f"  kernel launches: {launches}; per iteration "
+        f"{ {k: round(v / n_iter, 2) for k, v in launches.items() if v} }")
+    log(f"  plain-version calls: {plain}")
+    require(all(launches[n] > 0 for n in PATH_KERNELS[algo]),
+            f"{algo}: a kernel of its path never launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"{algo}: a plain version ran on the main path: {plain}")
+    require(peak < 3 * matrix, f"{algo}: peak {peak} bytes holds a third "
+            f"(D, K) matrix")
+    want = esicp_traj[:max_iter]
+    require(n_iter == len(want), f"{algo}: {n_iter} iterations, the esicp "
+            f"fit's first {max_iter} took {len(want)}")
+    for r, (a, b) in enumerate(zip(model.trajectory, want)):
+        require(torch.equal(a, b), f"{algo}: assignment differs from the "
+                f"esicp fit at iteration {r + 1}")
+    log(f"  assignments equal the esicp fit's at all {n_iter} iterations")
+    log(f"{algo} fit done in {time.perf_counter() - t0:.1f} s")
+    return launches, model
+
+
+def sketch_kernel_phase(torch, docs, model):
+    """The sketch kernels and the two gather variants against their plain
+    versions at the main path's shapes, with a fitted model's means,
+    thresholds and ρ_self."""
+    from repro_torch.core.meanindex import sketch_size
+    from repro_torch.kernels import ops, ref
+
+    t0 = phase("sketch kernels and gather variants")
+    index = model.index
+    means_t, params = index.means_t, index.params
+    d, k = docs.dim, NYT_K
+    s_dim = sketch_size(d)
+    b_ids = docs.ids[:BATCH].contiguous()
+    b_vals = docs.vals[:BATCH].contiguous()
+    _, p = b_ids.shape
+    live = b_vals != 0
+    b_nnz = int(live.sum())
+    uniq = int(torch.unique(b_ids[live]).numel())
+    rows = {}
+    log(f"  B {BATCH} S {s_dim} K {k} D {d} P {p}; t_th {params.t_th} "
+        f"v_th {params.v_th}")
+
+    # doc_sketch on the batch.
+    dsk = ops.doc_sketch(b_ids, b_vals, d, s_dim)
+    check_equal(torch, "doc_sketch", dsk,
+                ref.doc_sketch(b_ids, b_vals, d, s_dim))
+    rows["doc_sketch"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: ops.doc_sketch(b_ids, b_vals, d, s_dim)),
+        plain_ms=time_ms(torch, lambda: ref.doc_sketch(b_ids, b_vals, d,
+                                                       s_dim), reps=3),
+        library_ms=None,
+        bound=bound_ms(BATCH * p * 8 + BATCH * s_dim * 4, 2 * b_nnz))
+
+    # sketch_sim: the sketch gate's product, and a pair count (0/1 operands).
+    sk_t = index.sketch_t
+    got = ops.sketch_sim(dsk, sk_t)
+    check_equal(torch, "sketch_sim", got, ref.sketch_sim(dsk, sk_t))
+    ones_d, ones_m = (dsk > 0).float(), (sk_t > 0).float()
+    pairs = ops.sketch_sim(ones_d, ones_m)
+    check_equal(torch, "sketch_sim pairs", pairs,
+                ref.sketch_sim(ones_d, ones_m))
+    require(torch.equal(pairs, (ones_d.double() @ ones_m.double()).float()),
+            "sketch_sim pair counts are not exact")
+    lib = torch.matmul(dsk, sk_t)
+    log(f"  sketch_sim bitwise equal to plain; torch.matmul (no TF32) max "
+        f"abs diff {max_err(torch, lib, got):.3g}")
+    rows["sketch_sim"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: ops.sketch_sim(dsk, sk_t)),
+        plain_ms=time_ms(torch, lambda: ref.sketch_sim(dsk, sk_t), reps=3),
+        library_ms=time_ms(torch, lambda: torch.matmul(dsk, sk_t)),
+        bound=bound_ms((BATCH * s_dim + s_dim * k + BATCH * k) * 4,
+                       2 * BATCH * s_dim * k))
+    del got, pairs, lib
+
+    # The ta variant with v_ta = ρ_self / ||x||_1 (as _ta_icp forms it).
+    l1 = b_vals.sum(dim=1, dtype=torch.float64).to(torch.float32)
+    v_ta = (torch.clamp(model.rho_self[:BATCH], min=0.0)
+            / torch.clamp(l1, min=1e-12)).contiguous()
+    log(f"  v_ta: min {float(v_ta.min()):.4g} median "
+        f"{float(v_ta.median()):.4g} max {float(v_ta.max()):.4g}")
+    got = ops.esicp_gather(b_ids, b_vals, means_t, params.t_th, 0.0,
+                           with_counts=True, v_ta=v_ta)
+    want = ref.esicp_gather(b_ids, b_vals, means_t, params.t_th, 0.0,
+                            with_counts=True, v_ta=v_ta)
+    for nm, g, w in zip(("rho12", "y", "sims", "counts"), got, want):
+        check_equal(torch, f"esicp_gather_ta.{nm}", g, w)
+    rows["esicp_gather_ta"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: ops.esicp_gather(
+            b_ids, b_vals, means_t, params.t_th, 0.0, with_counts=True,
+            v_ta=v_ta)),
+        plain_ms=time_ms(torch, lambda: ref.esicp_gather(
+            b_ids, b_vals, means_t, params.t_th, 0.0, with_counts=True,
+            v_ta=v_ta), reps=3),
+        library_ms=None,
+        bound=bound_ms(uniq * k * 4 + BATCH * p * 8 + BATCH * 4
+                       + BATCH * k * 16, 2 * 4 * b_nnz * k))
+    del got, want
+
+    # The square variant as CS-ICP calls it: 1 on the tail slots (dead
+    # slots included when t_th is 0), m² gathered.
+    ones = (b_ids >= params.t_th).to(torch.float32)
+    got, _ = ops.sparse_sim(b_ids, ones, means_t, square=True)
+    want, _ = ref.sparse_sim(b_ids, ones, means_t, square=True)
+    check_equal(torch, "sparse_sim_square", got, want)
+    n_tail = int((ones != 0).sum())
+    tail_rows = int(torch.unique(b_ids[ones != 0]).numel())
+    rows["sparse_sim_square"] = dict(
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: ops.sparse_sim(b_ids, ones, means_t,
+                                                 square=True)),
+        plain_ms=time_ms(torch, lambda: ref.sparse_sim(
+            b_ids, ones, means_t, square=True), reps=3),
+        library_ms=None,
+        bound=bound_ms(tail_rows * k * 4 + BATCH * p * 8 + BATCH * k * 4,
+                       3 * n_tail * k))
+    log(f"  square variant: {n_tail} tail slots over {tail_rows} rows")
+    del got, want
+    for name, r in rows.items():
+        log(f"  {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound"
+            f" {r['bound'][0]:.4f} ms by {r['bound'][1]}, library "
+            f"{r['library_ms']}) bitwise equal to plain")
+    log(f"sketch kernel checks passed in {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def main() -> int:
@@ -457,6 +695,10 @@ def main() -> int:
     ap.add_argument("--n-docs", type=int, default=200_000,
                     help="documents of the NYT-width corpus (paper: 1,285,944)")
     ap.add_argument("--max-iter", type=int, default=6)
+    ap.add_argument("--mode-iter", type=int, default=4,
+                    help="iterations of the sketch and bounds-esicp fits")
+    ap.add_argument("--small-iter", type=int, default=8,
+                    help="iterations of the small cross-check's other modes")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -485,21 +727,39 @@ def main() -> int:
         f"{int(docs.nnz.sum())} in {time.perf_counter() - t0:.1f} s")
 
     rows = kernel_phase(torch, docs, args.seed)
-    small_phase(torch, args.seed)
+    variant_launches = small_phase(torch, args.seed, args.small_iter)
     launches, model = main_phase(torch, docs, df, args.max_iter)
     breakdown_phase(torch, docs, df, model)
+    esicp_traj = model.trajectory
     del model
+    torch.cuda.empty_cache()
+    paths = {name: ["esicp fit + classify"] for name in PATH_KERNELS["esicp"]}
+    for algo in ("sketch", "bounds-esicp"):
+        got, model = mode_phase(torch, docs, df, algo, args.mode_iter,
+                                esicp_traj)
+        for name in PATH_KERNELS[algo]:
+            launches[name] += got[name]
+            paths.setdefault(name, []).append(f"{algo} fit")
+        breakdown_phase(torch, docs, df, model, algo, est=False)
+        if algo == "sketch":
+            del model
+            torch.cuda.empty_cache()
+    rows.update(sketch_kernel_phase(torch, docs, model))
+    del model
+    for name, (count, algo) in variant_launches.items():
+        launches[name] = count
+        paths[name] = [f"small cross-check {algo} fit on the card"]
 
     kernels = []
-    for name in ("esicp_gather", "esicp_filter", "segment_update",
-                 "rho_gather", "sparse_sim"):
+    for name in SOURCES:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "path": ", ".join(paths[name])})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

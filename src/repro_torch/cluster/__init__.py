@@ -12,18 +12,21 @@ from repro_torch.cluster.model import FittedModel
 from repro_torch.cluster.strategies import SingleHostStrategy
 
 
-def fit(docs, config: ClusterConfig, *, df=None,
-        seed_rows=None) -> FittedModel:
+def fit(docs, config: ClusterConfig, *, df=None, seed_rows=None,
+        keep_trajectory: bool = False) -> FittedModel:
     """(docs, ClusterConfig) -> FittedModel, on ``config.device``.
 
-    ``seed_rows`` optionally names the K documents that seed the centroids.
+    ``seed_rows`` optionally names the K documents that seed the centroids;
+    ``keep_trajectory`` keeps the assignment after every iteration (on the
+    host) in ``FittedModel.trajectory``.
     """
     res = SingleHostStrategy().fit(docs, config.validate(), df=df,
-                                   seed_rows=seed_rows)
+                                   seed_rows=seed_rows,
+                                   keep_trajectory=keep_trajectory)
     return FittedModel(index=res.state.index, labels=res.assign,
                        rho_self=res.state.rho_self, history=res.history,
                        converged=res.converged, n_iter=res.n_iter,
-                       algo=config.algo)
+                       algo=config.algo, trajectory=res.trajectory)
 
 
 __all__ = ["ClusterConfig", "FittedModel", "SingleHostStrategy",

@@ -12,7 +12,8 @@ from repro_torch.core.meanindex import StructuralParams
 
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
-    """k: number of clusters.  algo: 'esicp' | 'mivi'.  params: 'auto'
+    """k: number of clusters.  algo: 'mivi', 'icp', 'es', 'esicp',
+    'ta-icp', 'cs-icp', 'bounds', 'sketch' or 'bounds-esicp'.  params: 'auto'
     (EstParams at ``est_iters``), a StructuralParams, or None (trivial).
     batch_size: rows per assignment batch.  seed: centroid-seeding seed.
     device: 'cuda' (the default; raises without a GPU) or 'cpu' (the plain
@@ -41,7 +42,7 @@ class ClusterConfig:
         if self.k < 1:
             raise ValueError(f"k must be >= 1, got {self.k}")
         if self.algo not in ALGORITHMS:
-            raise ValueError(f"unknown or unported algorithm {self.algo!r}; "
+            raise ValueError(f"unknown algorithm {self.algo!r}; "
                              f"one of {sorted(ALGORITHMS)}")
         if not (self.params == "auto" or self.params is None
                 or isinstance(self.params, StructuralParams)):

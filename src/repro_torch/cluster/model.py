@@ -20,6 +20,9 @@ class FittedModel:
     converged: bool = True
     n_iter: int = 0
     algo: str = "esicp"
+    # (N,) int32 host assignments after each iteration, when the fit was
+    # asked to keep them; else None.
+    trajectory: list | None = None
 
     @property
     def k(self) -> int:

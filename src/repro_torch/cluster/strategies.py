@@ -11,11 +11,11 @@ class SingleHostStrategy:
 
     name = "single_host"
 
-    def fit(self, docs, config: ClusterConfig, df=None,
-            seed_rows=None) -> LloydResult:
+    def fit(self, docs, config: ClusterConfig, df=None, seed_rows=None,
+            keep_trajectory: bool = False) -> LloydResult:
         return lloyd_fit(
             docs, k=config.k, algo=config.algo, params=config.params,
             batch_size=config.batch_size, max_iter=config.max_iter,
             est_grid=config.est_grid, est_iters=config.est_iters,
             seed=config.seed, seed_rows=seed_rows, df=df,
-            device=config.device)
+            device=config.device, keep_trajectory=keep_trajectory)

@@ -24,7 +24,7 @@ from repro_torch._device import resolve_device
 from repro_torch.core.assignment import assign_batch
 from repro_torch.core.backends import KernelBackend
 from repro_torch.core.estparams import EstGrid, estimate_params
-from repro_torch.core.meanindex import StructuralParams
+from repro_torch.core.meanindex import StructuralParams, region3_sketch
 from repro_torch.core.update import KMeansState, init_state, update_step
 from repro_torch.sparse.matrix import SparseDocs
 
@@ -66,11 +66,15 @@ def _epoch(algo: str, bk, docs: SparseDocs, state: KMeansState, bs: int):
     cand = torch.zeros((), dtype=torch.int64, device=dev)
     changed = torch.zeros((), dtype=torch.int64, device=dev)
     xstate = state.xstate
+    # bounds-esicp's Region-3 mean sketch depends on the index alone: one
+    # per epoch, not one per batch.
+    extra = ({"r3_sketch": region3_sketch(state.index)}
+             if algo == "bounds-esicp" else {})
     for s in range(0, n, bs):
         e = min(s + bs, n)
         res = assign_batch(algo, bk, docs.slice_rows(s, bs), state.index,
                            state.assign[s:e], state.rho_self[s:e],
-                           xstate[s:e], state.ub[s:e])
+                           xstate[s:e], state.ub[s:e], **extra)
         assign[s:e] = res.assign
         ub[s:e] = res.ub
         mult += res.mult
@@ -86,7 +90,10 @@ def lloyd_fit(docs: SparseDocs, *, k: int, algo: str = "esicp",
               device="cuda", keep_trajectory: bool = False) -> LloydResult:
     """Single-host Lloyd fit on ``device`` (docs are moved there).
 
-    algo:      'esicp' | 'mivi'.
+    algo:      one of ``repro_torch.core.assignment.ALGORITHMS``: 'mivi',
+               'icp', 'es', 'esicp', 'ta-icp', 'cs-icp', 'bounds', 'sketch',
+               'bounds-esicp'.  Every mode gives MIVI's assignments; they
+               differ in Mult, |Z| and the maintained bounds.
     params:    'auto' (EstParams at ``est_iters``), a StructuralParams for
                fixed thresholds, or None (trivial).
     seed_rows: optional (K,) document indices for the initial centroids

@@ -12,9 +12,11 @@ into three regions:
 Memory at the NYT widths: one (D, K) float32 matrix is 19.8 GB, so nothing
 here allocates another.  Every statistic walks the matrix in row chunks
 (:func:`row_chunks`), :func:`normalized_means` normalises λ in place, and
-the EstParams tables loop over their thresholds.  Column sums that feed a
-division or a threshold are accumulated in float64, so their rounding does
-not depend on the reduction order of the device.
+the EstParams tables loop over their thresholds.  Sums whose rounding
+matters never use the device's own reduction order: the column dots that
+normalise the means and measure their drift repeat ``repro``'s float32
+order (:func:`window_sum`), and the EstParams tables and sketches sum in
+float64.
 
 Unlike ``repro``, :func:`build_mean_index` takes the transposed
 ``means_t (D, K)`` (the port never holds (K, D) means), and the structural
@@ -25,6 +27,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import sqrt_rn
 
 # Elements of one (rows, K) chunk of the means matrix.
 CHUNK_ELEMS = 1 << 24
@@ -50,20 +55,45 @@ def sketch_size(dim: int) -> int:
     return -(-dim // g)
 
 
+def _group_norms(means_t: torch.Tensor, t_th: int = 0,
+                 v_th: float | None = None) -> torch.Tensor:
+    """(S, K) per-group L2 norms of the rows s >= t_th of ``means_t``,
+    keeping only entries below ``v_th`` when it is given.
+
+    Walks each group's rows in chunks, so no (D, K) temporary exists.  The
+    float32 squares are summed in float64, so the float32 sum does not hang
+    on the device's reduction order (it could only differ where two
+    float64 sums straddle a float32 rounding boundary).
+    """
+    d, k = means_t.shape
+    g = sketch_group_width(d)
+    out = torch.zeros((sketch_size(d), k), dtype=torch.float32,
+                      device=means_t.device)
+    t0 = min(max(int(t_th), 0), d)
+    for s in range(t0 // g, out.shape[0]):
+        lo, hi = max(s * g, t0), min((s + 1) * g, d)
+        acc = torch.zeros((k,), dtype=torch.float64, device=means_t.device)
+        for a, b in row_chunks(hi - lo, k):
+            blk = means_t[lo + a:lo + b]
+            if v_th is not None:
+                blk = torch.where(blk < v_th, blk, 0.0)
+            acc += (blk * blk).sum(dim=0, dtype=torch.float64)
+        out[s] = sqrt_rn(acc.to(torch.float32))
+    return out
+
+
 def sketch_means(means_t: torch.Tensor) -> torch.Tensor:
     """(D, K) -> (S, K): slot s holds the L2 norm of rows [s·g, (s+1)·g)
     per centroid, reduced group by group."""
-    d, k = means_t.shape
-    g = sketch_group_width(d)
-    out = torch.empty((sketch_size(d), k), dtype=torch.float32,
-                      device=means_t.device)
-    for s in range(out.shape[0]):
-        acc = torch.zeros((k,), dtype=torch.float32, device=means_t.device)
-        for a, b in row_chunks(min(g, d - s * g), k):
-            blk = means_t[s * g + a:s * g + b]
-            acc += (blk * blk).sum(dim=0)
-        out[s] = torch.sqrt(acc)
-    return out
+    return _group_norms(means_t)
+
+
+def doc_sketch(ids: torch.Tensor, vals: torch.Tensor, dim: int
+               ) -> torch.Tensor:
+    """(B, P) padded tuple rows -> (B, S) block-vector sketch (the
+    ``doc_sketch`` kernel).  Dead slots carry value 0 and add nothing,
+    whatever their id."""
+    return ops.doc_sketch(ids, vals, dim, sketch_size(dim))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,13 +182,61 @@ def build_mean_index(means_t: torch.Tensor, params: StructuralParams,
                      sketch_t=sketch_means(means_t))
 
 
-def column_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(K,) float64 Σ_d a[d, k]·b[d, k], accumulated in float64 by row chunk."""
-    d, k = a.shape
-    acc = torch.zeros((k,), dtype=torch.float64, device=a.device)
-    for s, e in row_chunks(d, k):
-        acc += (a[s:e].double() * b[s:e].double()).sum(dim=0)
+# Width of one window of ``repro``'s CPU reductions (see window_sum).
+WINDOW = 32
+
+
+def _sequential_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ along ``dim`` as acc = 0; acc = acc + x[j] for j in order."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for j in range(x.shape[dim]):
+        acc = acc + x.select(dim, j)
     return acc
+
+
+def _window_level(x: torch.Tensor) -> torch.Tensor:
+    """One level of the tree: zero-pad dim 0 to a WINDOW multiple (half the
+    padding in front), then sum each window of WINDOW rows in order."""
+    n = x.shape[0]
+    pad = -n % WINDOW
+    x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
+    return _sequential_sum(x.reshape(-1, WINDOW, x.shape[1]), 1)
+
+
+def window_sum(x: torch.Tensor) -> torch.Tensor:
+    """(N, M) -> (M,) float32 sums over dim 0 in ``repro``'s order.
+
+    XLA's CPU compiler rewrites a float32 reduction longer than WINDOW into
+    window levels (:func:`_window_level`) until at most WINDOW partials
+    remain, which it adds in order.  Repeating that order makes these sums
+    equal ``repro``'s bit for bit, on the CPU and on the card alike (the
+    adds are elementwise, so the device's own reduction order never
+    enters).
+    """
+    while x.shape[0] > WINDOW:
+        x = _window_level(x)
+    return _sequential_sum(x, 0)
+
+
+def column_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(K,) float32 Σ_d a[d, k]·b[d, k] in ``repro``'s order
+    (:func:`window_sum`), computed a few thousand rows at a time so no
+    (D, K) product temporary exists."""
+    d, k = a.shape
+    if d <= WINDOW:
+        return window_sum(a * b)
+    pad = -d % WINDOW
+    lo = pad // 2
+    n_win = (d + pad) // WINDOW
+    partial = torch.empty((n_win, k), dtype=torch.float32, device=a.device)
+    step = max(1, 4 * CHUNK_ELEMS // (WINDOW * max(k, 1)))
+    for j0 in range(0, n_win, step):
+        j1 = min(j0 + step, n_win)
+        r0, r1 = j0 * WINDOW - lo, j1 * WINDOW - lo   # padded window rows
+        s, e = max(r0, 0), min(r1, d)
+        prod = torch.nn.functional.pad(a[s:e] * b[s:e], (0, 0, s - r0, r1 - e))
+        partial[j0:j1] = _sequential_sum(prod.view(j1 - j0, WINDOW, k), 1)
+    return window_sum(partial)
 
 
 def normalized_means(lam_t: torch.Tensor,
@@ -169,7 +247,7 @@ def normalized_means(lam_t: torch.Tensor,
     keeps its previous mean, copied from ``fallback_means_t`` for those
     columns only.  Returns ``lam_t``, which now holds the means.
     """
-    norms = torch.sqrt(column_dots(lam_t, lam_t)).to(torch.float32)
+    norms = sqrt_rn(column_dots(lam_t, lam_t))
     lam_t.div_(torch.clamp(norms, min=1e-12))
     empty = torch.nonzero(norms == 0.0).flatten()
     if empty.numel():
@@ -214,3 +292,12 @@ def mfh_table(means_t: torch.Tensor, v_grid) -> torch.Tensor:
         for h, v_h in enumerate(v_grid):
             out[s:e, h] = (blk >= v_h).sum(dim=1, dtype=torch.int32)
     return out
+
+
+def region3_sketch(index: MeanIndex) -> torch.Tensor:
+    """(S, K) per-group L2 norms of each centroid's Region-3 entries
+    (rows s >= t_th with v < v_th) — the mean side of ``bounds-esicp``'s
+    sketch-refined Region-3 bound.  It depends on the means and the
+    thresholds alone, so a fit computes it once per assignment epoch.
+    Only the groups at or past t_th are read."""
+    return _group_norms(index.means_t, index.params.t_th, index.params.v_th)

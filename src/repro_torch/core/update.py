@@ -20,6 +20,7 @@ import torch
 from repro_torch.core.meanindex import (MeanIndex, StructuralParams,
                                         build_mean_index, column_dots,
                                         normalized_means)
+from repro_torch.kernels.ref import sqrt_rn
 from repro_torch.sparse.matrix import SparseDocs
 
 
@@ -59,15 +60,38 @@ def n_ub_groups(k: int) -> int:
     return -(-k // ub_group_size(k))
 
 
+def _in_f64(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` evaluated in float64 and rounded to float32.  The float32
+    arccos and cos of the CPU and of the card differ in the last bit for
+    some inputs; rounded from float64 they agree (barring a float64 error
+    that straddles a float32 rounding boundary)."""
+    return fn(x.double()).to(torch.float32)
+
+
+def ub_group_of(k: int, device=None) -> torch.Tensor:
+    """(K,) int64 centroid id -> bound group (contiguous tiers)."""
+    return torch.arange(k, device=device) // ub_group_size(k)
+
+
+def max_center_drift(means_t_new: torch.Tensor,
+                     means_t_old: torch.Tensor) -> torch.Tensor:
+    """() float32 max_j angular drift arccos(<c_j_new, c_j_old>), from the
+    row-chunked column dots (no (D, K) product temporary)."""
+    dots = column_dots(means_t_new, means_t_old)
+    return _in_f64(torch.arccos, torch.clamp(dots, -1.0, 1.0)).amax()
+
+
 def group_drift(means_t_new: torch.Tensor,
                 means_t_old: torch.Tensor) -> torch.Tensor:
     """(G,) float32 per-bound-group max angular drift arccos(<c_new, c_old>).
 
-    The column dots are a float64 row-chunked sum (never a (D, K) product
-    temporary); a ragged final group pads with zero drift.
+    The column dots are row-chunked (never a (D, K) product temporary) and
+    summed in ``repro``'s order: near a dot of 1 the arccos turns one ulp
+    into a drift of 3·10^-4, which the bounds modes would see.  A ragged
+    final group pads with zero drift.
     """
-    dots = column_dots(means_t_new, means_t_old).to(torch.float32)
-    d = torch.arccos(torch.clamp(dots, -1.0, 1.0))
+    dots = column_dots(means_t_new, means_t_old)
+    d = _in_f64(torch.arccos, torch.clamp(dots, -1.0, 1.0))
     k = d.shape[0]
     gsz = ub_group_size(k)
     g = n_ub_groups(k)
@@ -79,8 +103,9 @@ def drift_loosen(ub: torch.Tensor, delta_max: torch.Tensor) -> torch.Tensor:
     """cos(max(0, θ − δ)) + UB_DRIFT_EPS for finite bounds, where
     θ = arccos(ub); non-finite bounds pass through.  Broadcasts a (N, G)
     bound against a (G,) drift."""
-    theta = torch.arccos(torch.clamp(ub, -1.0, 1.0))
-    loose = torch.cos(torch.clamp(theta - delta_max, min=0.0)) + UB_DRIFT_EPS
+    theta = _in_f64(torch.arccos, torch.clamp(ub, -1.0, 1.0))
+    loose = (_in_f64(torch.cos, torch.clamp(theta - delta_max, min=0.0))
+             + UB_DRIFT_EPS)
     return torch.where(torch.isfinite(ub), loose, ub)
 
 
@@ -139,7 +164,7 @@ def seed_centroids(sel: SparseDocs, k: int) -> torch.Tensor:
     cols = torch.arange(k, device=sel.device)[:, None].expand_as(sel.ids)
     vals = torch.where(sel.row_mask(), sel.vals, 0.0)
     means_t.index_put_((sel.ids.long(), cols), vals, accumulate=True)
-    norms = torch.sqrt(column_dots(means_t, means_t)).to(torch.float32)
+    norms = sqrt_rn(column_dots(means_t, means_t))
     return means_t.div_(torch.clamp(norms, min=1e-12))
 
 

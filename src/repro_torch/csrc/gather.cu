@@ -1,8 +1,12 @@
 // Gather-form similarity kernels over the mean-inverted index (CUDA, sm_90a).
 //
-// One template, two modes (kernels/esicp_gather.py, kernels/sparse_sim.py):
-//   kEsicp = true   per (b, k): rho12, y, sims [, counts over the exact region]
-//   kEsicp = false  per (b, k): sims [, counts]
+// One template, four modes (kernels/esicp_gather.py, kernels/sparse_sim.py):
+//   kSims    per (b, k): sims [, counts]
+//   kSquare  per (b, k): Σ v·m² — sparse_sim over the squared matrix, which is
+//            never built (CS-ICP's tail sum of squares)
+//   kEsicp   per (b, k): rho12, y, sims [, counts over the exact region]
+//   kTa      as kEsicp, with the threshold v_ta[b] of each document in place
+//            of the shared v_th (TA-ICP), read once per document
 //
 // Grid: blockIdx.x = a tile of kTileK centroid columns, blockIdx.y = a tile
 // of kDocsPerBlock documents.  Thread t owns the columns k0 + t + j*kThreads
@@ -10,9 +14,11 @@
 // The block stages a document's (id, v) tuples in shared memory; for every
 // live tuple each thread reads its columns of the contiguous row
 // means_t[id, :] and folds them into per-thread registers.  The thresholds
-// (t_th, v_th) are shared by the whole grid, and `tail` depends on the tuple
+// (t_th, and v_th or the document's v_ta) are the same for every thread of
+// a block while it works on one document, and `tail` depends on the tuple
 // alone, so every thread of a block takes the same path through the tuple
-// loop; only the per-column `m >= v_th` test differs, and it is a select.
+// loop; only the per-column `m >= threshold` test differs, and it is a
+// select.
 //
 // Every accumulator walks the tuple slots in order and adds the rounded
 // product (no fused multiply-add), which is the order and rounding of the
@@ -27,13 +33,16 @@ constexpr int kTileK = kThreads * kColsPerThread;
 constexpr int kDocsPerBlock = 8;
 constexpr int kSlots = 512;
 
-template <bool kEsicp, bool kCounts>
+enum Mode { kSims, kSquare, kEsicp, kTa };
+
+template <int kMode, bool kCounts>
 __global__ void __launch_bounds__(kThreads)
 gather_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
               const float* __restrict__ means_t, int B, int P, int D, int K,
-              float t_th, float v_th, float* __restrict__ sims,
-              float* __restrict__ rho12, float* __restrict__ y,
-              int* __restrict__ counts) {
+              float t_th, float v_th, const float* __restrict__ v_ta,
+              float* __restrict__ sims, float* __restrict__ rho12,
+              float* __restrict__ y, int* __restrict__ counts) {
+  constexpr bool kRegions = kMode == kEsicp || kMode == kTa;
   __shared__ int s_id[kSlots];
   __shared__ float s_v[kSlots];
   const int k_base = blockIdx.x * kTileK + threadIdx.x;
@@ -42,6 +51,7 @@ gather_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
   for (int bi = 0; bi < kDocsPerBlock; ++bi) {
     const int b = b0 + bi;
     if (b >= B) break;  // the same for every thread of the block
+    const float thr = kMode == kTa ? v_ta[b] : v_th;
     float a_sim[kColsPerThread], a_rho[kColsPerThread], a_y[kColsPerThread];
     int a_cnt[kColsPerThread];
 #pragma unroll
@@ -68,10 +78,11 @@ gather_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
           const int k = k_base + j * kThreads;
           if (k < K) {
             const float m = __ldg(mrow + k);
-            const float c = __fmul_rn(v, m);
+            const float c =
+                __fmul_rn(v, kMode == kSquare ? __fmul_rn(m, m) : m);
             a_sim[j] = __fadd_rn(a_sim[j], c);
-            if (kEsicp) {
-              const bool exact = !tail || m >= v_th;
+            if (kRegions) {
+              const bool exact = !tail || m >= thr;
               a_rho[j] = exact ? __fadd_rn(a_rho[j], c) : a_rho[j];
               a_y[j] = exact ? a_y[j] : __fadd_rn(a_y[j], v);
               if (kCounts) a_cnt[j] += (exact && m > 0.0f) ? 1 : 0;
@@ -88,7 +99,7 @@ gather_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
       const int k = k_base + j * kThreads;
       if (k < K) {
         sims[out + k] = a_sim[j];
-        if (kEsicp) { rho12[out + k] = a_rho[j]; y[out + k] = a_y[j]; }
+        if (kRegions) { rho12[out + k] = a_rho[j]; y[out + k] = a_y[j]; }
         if (kCounts) counts[out + k] = a_cnt[j];
       }
     }
@@ -97,6 +108,29 @@ gather_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
 
 dim3 grid_for(int B, int K) {
   return dim3((K + kTileK - 1) / kTileK, (B + kDocsPerBlock - 1) / kDocsPerBlock);
+}
+
+template <int kMode>
+int launch(const void* ids, const void* vals, const void* means_t, int B,
+           int P, int D, int K, float t_th, float v_th, const void* v_ta,
+           void* rho12, void* y, void* sims, void* counts, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* i = static_cast<const int*>(ids);
+  const auto* v = static_cast<const float*>(vals);
+  const auto* m = static_cast<const float*>(means_t);
+  const auto* ta = static_cast<const float*>(v_ta);
+  auto* o_sims = static_cast<float*>(sims);
+  auto* o_rho = static_cast<float*>(rho12);
+  auto* o_y = static_cast<float*>(y);
+  if (counts) {
+    gather_kernel<kMode, true><<<grid_for(B, K), kThreads, 0, s>>>(
+        i, v, m, B, P, D, K, t_th, v_th, ta, o_sims, o_rho, o_y,
+        static_cast<int*>(counts));
+  } else {
+    gather_kernel<kMode, false><<<grid_for(B, K), kThreads, 0, s>>>(
+        i, v, m, B, P, D, K, t_th, v_th, ta, o_sims, o_rho, o_y, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -108,41 +142,31 @@ extern "C" int esicp_gather_launch(const void* ids, const void* vals,
                                    int K, float t_th, float v_th, void* rho12,
                                    void* y, void* sims, void* counts,
                                    void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* i = static_cast<const int*>(ids);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* m = static_cast<const float*>(means_t);
-  if (counts) {
-    gather_kernel<true, true><<<grid_for(B, K), kThreads, 0, s>>>(
-        i, v, m, B, P, D, K, t_th, v_th, static_cast<float*>(sims),
-        static_cast<float*>(rho12), static_cast<float*>(y),
-        static_cast<int*>(counts));
-  } else {
-    gather_kernel<true, false><<<grid_for(B, K), kThreads, 0, s>>>(
-        i, v, m, B, P, D, K, t_th, v_th, static_cast<float*>(sims),
-        static_cast<float*>(rho12), static_cast<float*>(y), nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<kEsicp>(ids, vals, means_t, B, P, D, K, t_th, v_th, nullptr,
+                        rho12, y, sims, counts, stream);
+}
+
+extern "C" int esicp_gather_ta_launch(const void* ids, const void* vals,
+                                      const void* means_t, int B, int P,
+                                      int D, int K, float t_th,
+                                      const void* v_ta, void* rho12, void* y,
+                                      void* sims, void* counts,
+                                      void* stream) {
+  return launch<kTa>(ids, vals, means_t, B, P, D, K, t_th, 0.0f, v_ta, rho12,
+                     y, sims, counts, stream);
 }
 
 extern "C" int sparse_sim_launch(const void* ids, const void* vals,
                                  const void* means_t, int B, int P, int D,
-                                 int K, void* sims, void* counts,
+                                 int K, int square, void* sims, void* counts,
                                  void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* i = static_cast<const int*>(ids);
-  const auto* v = static_cast<const float*>(vals);
-  const auto* m = static_cast<const float*>(means_t);
-  if (counts) {
-    gather_kernel<false, true><<<grid_for(B, K), kThreads, 0, s>>>(
-        i, v, m, B, P, D, K, 0.0f, 0.0f, static_cast<float*>(sims), nullptr,
-        nullptr, static_cast<int*>(counts));
-  } else {
-    gather_kernel<false, false><<<grid_for(B, K), kThreads, 0, s>>>(
-        i, v, m, B, P, D, K, 0.0f, 0.0f, static_cast<float*>(sims), nullptr,
-        nullptr, nullptr);
+  if (square) {
+    if (counts) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<kSquare>(ids, vals, means_t, B, P, D, K, 0.0f, 0.0f,
+                           nullptr, nullptr, nullptr, sims, nullptr, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<kSims>(ids, vals, means_t, B, P, D, K, 0.0f, 0.0f, nullptr,
+                       nullptr, nullptr, sims, counts, stream);
 }
 
 extern "C" const char* gather_error_string(int code) {

@@ -9,7 +9,7 @@ Replaces ``repro/kernels/esicp_gather.py:esicp_gather_pallas``
     sims[b,k]  = x_b·μ_k                                      (exact sims)
     counts[b,k]= Σ live·[v > 0 ∧ exact]                       (Mult, optional)
 
-Source: ``csrc/gather.cu`` (template ``gather_kernel<kEsicp=true>``); plain
+Source: ``csrc/gather.cu`` (template ``gather_kernel<kEsicp>``); plain
 version: :func:`repro_torch.kernels.ref.esicp_gather`.
 
 What bounds it on the card.  The TPU kernel densified each (B_blk, D_blk)
@@ -23,6 +23,13 @@ are L2 hits; the kernel is bound by L2/device-memory bandwidth of those row
 reads, not by the fp32 FMAs.  The shared (t_th, v_th) keep every thread of a
 block on the same path through the tuple loop.  No tensor cores, no TF32:
 fp32 stays fp32.
+
+The ``ta`` variant (``gather_kernel<kTa>``, :func:`launch_ta`) serves
+TA-ICP (paper App. F-A): each document brings its own value threshold
+v_ta[b] = ρ_self / ||x||_1, read once per document in place of the shared
+v_th, so a block still takes one path per document.  ``repro`` has no
+Pallas kernel for it (its per-object threshold does not fit the
+densified slab) and runs the TAAT scan, ``reference_scan(mode="ta")``.
 """
 from __future__ import annotations
 
@@ -34,9 +41,14 @@ _SIG = {
         _build.ptr, _build.ptr, _build.ptr, _build.c_int, _build.c_int,
         _build.c_int, _build.c_int, _build.c_float, _build.c_float,
         _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.ptr]),
+    "esicp_gather_ta_launch": (_build.c_int, [
+        _build.ptr, _build.ptr, _build.ptr, _build.c_int, _build.c_int,
+        _build.c_int, _build.c_int, _build.c_float, _build.ptr,
+        _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.ptr]),
     "sparse_sim_launch": (_build.c_int, [
         _build.ptr, _build.ptr, _build.ptr, _build.c_int, _build.c_int,
-        _build.c_int, _build.c_int, _build.ptr, _build.ptr, _build.ptr]),
+        _build.c_int, _build.c_int, _build.c_int, _build.ptr, _build.ptr,
+        _build.ptr]),
     "gather_max_rows": (_build.c_int, []),
 }
 
@@ -54,6 +66,20 @@ def launch(ids, vals, means_t, dim: int, t_th: float, v_th: float, rho12, y,
     rc = lib.esicp_gather_launch(
         ids.data_ptr(), vals.data_ptr(), means_t.data_ptr(), b, p, dim, k,
         float(t_th), float(v_th), rho12.data_ptr(), y.data_ptr(),
+        sims.data_ptr(), None if counts is None else counts.data_ptr(),
+        _build.stream_ptr(ids.device))
+    _build.check(lib, "gather", rc)
+
+
+def launch_ta(ids, vals, means_t, dim: int, t_th: float, v_ta, rho12, y,
+              sims, counts) -> None:
+    """The per-row-threshold variant on the current stream."""
+    lib = library()
+    b, p = ids.shape
+    k = means_t.shape[1]
+    rc = lib.esicp_gather_ta_launch(
+        ids.data_ptr(), vals.data_ptr(), means_t.data_ptr(), b, p, dim, k,
+        float(t_th), v_ta.data_ptr(), rho12.data_ptr(), y.data_ptr(),
         sims.data_ptr(), None if counts is None else counts.data_ptr(),
         _build.stream_ptr(ids.device))
     _build.check(lib, "gather", rc)

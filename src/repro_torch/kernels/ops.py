@@ -7,7 +7,9 @@ kernel on the current stream.  There is no fallback: a CUDA operand the
 kernel cannot take raises.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN`` counts calls that went to
-a plain version, per kernel.  A run resets them with :func:`reset_counts`
+a plain version, per kernel; the gather kernel's per-row-threshold and
+squared-rows variants count under their own names (``esicp_gather_ta``,
+``sparse_sim_square``).  A run resets them with :func:`reset_counts`
 and reads them after, to show which path it took.
 """
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from repro_torch.kernels import ref
 
 KERNELS = ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
-           "sparse_sim")
+           "sparse_sim", "esicp_gather_ta", "sparse_sim_square", "doc_sketch",
+           "sketch_sim")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN = dict.fromkeys(KERNELS, 0)
 
@@ -73,11 +76,20 @@ def _check_gather(ids, vals, means_t):
     return on_cuda
 
 
-def sparse_sim(ids, vals, means_t, *, with_counts: bool = False):
-    """(B, K) float32 sims [and (B, K) int32 counts, else None]."""
+def sparse_sim(ids, vals, means_t, *, with_counts: bool = False,
+               square: bool = False):
+    """(B, K) float32 sims [and (B, K) int32 counts, else None].
+
+    ``square`` gathers m² in place of m (Σ v·m², counted as
+    ``sparse_sim_square``); it takes no counts.
+    """
+    if square and with_counts:
+        raise ValueError("the squared variant computes no counts")
+    name = "sparse_sim_square" if square else "sparse_sim"
     if not _check_gather(ids, vals, means_t):
-        PLAIN["sparse_sim"] += 1
-        return ref.sparse_sim(ids, vals, means_t, with_counts=with_counts)
+        PLAIN[name] += 1
+        return ref.sparse_sim(ids, vals, means_t, with_counts=with_counts,
+                              square=square)
     from repro_torch.kernels import sparse_sim as kern
 
     b, k = ids.shape[0], means_t.shape[1]
@@ -85,17 +97,32 @@ def sparse_sim(ids, vals, means_t, *, with_counts: bool = False):
     counts = (torch.empty((b, k), dtype=torch.int32, device=ids.device)
               if with_counts else None)
     if b and k:
-        kern.launch(ids, vals, means_t, means_t.shape[0], sims, counts)
-        LAUNCHES["sparse_sim"] += 1
+        kern.launch(ids, vals, means_t, means_t.shape[0], sims, counts,
+                    square=square)
+        LAUNCHES[name] += 1
     return sims, counts
 
 
-def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False):
-    """(rho12, y, sims) float32 (B, K) [and int32 counts, else None]."""
-    if not _check_gather(ids, vals, means_t):
-        PLAIN["esicp_gather"] += 1
+def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False,
+                 v_ta=None):
+    """(rho12, y, sims) float32 (B, K) [and int32 counts, else None].
+
+    ``v_ta`` (B,) float32 replaces the shared ``v_th`` by a threshold per
+    row (TA-ICP; counted as ``esicp_gather_ta``).
+    """
+    on_cuda = _check_gather(ids, vals, means_t)
+    name = "esicp_gather"
+    if v_ta is not None:
+        name = "esicp_gather_ta"
+        _need(v_ta, "v_ta", torch.float32, 1)
+        if v_ta.shape[0] != ids.shape[0]:
+            raise ValueError("v_ta must have one entry per row")
+        if _on_cuda(ids, v_ta):
+            _contiguous(("v_ta", v_ta))
+    if not on_cuda:
+        PLAIN[name] += 1
         return ref.esicp_gather(ids, vals, means_t, t_th, v_th,
-                                with_counts=with_counts)
+                                with_counts=with_counts, v_ta=v_ta)
     from repro_torch.kernels import esicp_gather as kern
 
     b, k = ids.shape[0], means_t.shape[1]
@@ -103,9 +130,13 @@ def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False):
     rho12, y, sims = out(torch.float32), out(torch.float32), out(torch.float32)
     counts = out(torch.int32) if with_counts else None
     if b and k:
-        kern.launch(ids, vals, means_t, means_t.shape[0], t_th, v_th, rho12,
-                    y, sims, counts)
-        LAUNCHES["esicp_gather"] += 1
+        if v_ta is None:
+            kern.launch(ids, vals, means_t, means_t.shape[0], t_th, v_th,
+                        rho12, y, sims, counts)
+        else:
+            kern.launch_ta(ids, vals, means_t, means_t.shape[0], t_th, v_ta,
+                           rho12, y, sims, counts)
+        LAUNCHES[name] += 1
     return rho12, y, sims, counts
 
 
@@ -175,4 +206,55 @@ def rho_gather(assign, ids, vals, means_t):
     if ids.shape[0]:
         kern.launch(assign, ids, vals, means_t, means_t.shape[0], out)
         LAUNCHES["rho_gather"] += 1
+    return out
+
+
+def doc_sketch(ids, vals, dim: int, sketch_size: int):
+    """(B, S) float32 block-vector sketch of padded tuple rows: slot s is
+    the L2 norm of the row's values with clip(id // g, 0, S-1) = s,
+    g = ceil(dim / S)."""
+    from repro_torch.kernels.sketch_sim import MAX_S
+
+    _check_tuples(ids, vals)
+    if not 1 <= sketch_size <= MAX_S:
+        raise ValueError(f"sketch_size must lie in [1, {MAX_S}], got "
+                         f"{sketch_size}")
+    if not _on_cuda(ids, vals):
+        PLAIN["doc_sketch"] += 1
+        return ref.doc_sketch(ids, vals, dim, sketch_size)
+    from repro_torch.kernels import sketch_sim as kern
+
+    _contiguous(("ids", ids), ("vals", vals))
+    out = torch.empty((ids.shape[0], sketch_size), dtype=torch.float32,
+                      device=ids.device)
+    if ids.shape[0]:
+        kern.launch_doc_sketch(ids, vals, -(-dim // sketch_size), out)
+        LAUNCHES["doc_sketch"] += 1
+    return out
+
+
+def sketch_sim(sk_docs, sketch_t):
+    """(B, S) × (S, K) -> (B, K) float32 sketch similarities, S ≤ 64."""
+    from repro_torch.kernels.sketch_sim import MAX_S
+
+    _need(sk_docs, "sk_docs", torch.float32, 2)
+    _need(sketch_t, "sketch_t", torch.float32, 2)
+    b, s = sk_docs.shape
+    if sketch_t.shape[0] != s or not 1 <= s <= MAX_S:
+        raise ValueError(f"sketch widths {s} and {sketch_t.shape[0]} must "
+                         f"agree and lie in [1, {MAX_S}]")
+    if not _on_cuda(sk_docs, sketch_t):
+        PLAIN["sketch_sim"] += 1
+        return ref.sketch_sim(sk_docs, sketch_t)
+    from repro_torch.kernels import sketch_sim as kern
+
+    _contiguous(("sk_docs", sk_docs), ("sketch_t", sketch_t))
+    if b > kern.library().sketch_max_rows():
+        raise ValueError(f"{b} rows exceed one sketch_sim launch; pass the "
+                         "rows in batches")
+    k = sketch_t.shape[1]
+    out = torch.empty((b, k), dtype=torch.float32, device=sk_docs.device)
+    if b and k:
+        kern.launch(sk_docs, sketch_t, out)
+        LAUNCHES["sketch_sim"] += 1
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five clustering kernels, in gather form.
+"""Plain PyTorch versions of the clustering kernels, in gather form.
 
 They are the CPU path (``kernels/ops.py`` sends CPU tensors here) and the
 oracle ``chip_smoke.py`` holds each CUDA kernel against on the card.  None
@@ -10,7 +10,10 @@ order, without fused multiply-adds, so kernel and plain version agree bit
 for bit where the kernel's order is fixed:
 
 * ``sparse_sim`` / ``esicp_gather`` — every (b, k) accumulator walks the
-  tuple slots p = 0..P-1 in order (``repro``'s TAAT scan order);
+  tuple slots p = 0..P-1 in order (``repro``'s TAAT scan order), also in
+  their squared-rows and per-row-threshold variants;
+* ``doc_sketch`` — every sketch slot sums its tuples' squares in p order;
+* ``sketch_sim`` — every (b, k) output sums its S products in s order;
 * ``esicp_filter`` — elementwise;
 * ``segment_update`` — every λ entry sums its tuples in row order;
 * ``rho_gather`` — lane l of a 32-lane warp sums slots l, l+32, ... and a
@@ -34,9 +37,14 @@ def _row_chunks(n_rows: int, width: int):
         yield s, min(s + step, n_rows)
 
 
-def sparse_sim(ids, vals, means_t, *, with_counts: bool = False):
+def sparse_sim(ids, vals, means_t, *, with_counts: bool = False,
+               square: bool = False):
     """(B, K) sims = x·μ for every pair; counts = Σ_p live·[m > 0] (int32)
-    when asked, else None."""
+    when asked, else None.
+
+    ``square``: each gathered row is squared first (m² rounded, then v·m²),
+    which is ``sparse_sim`` over the squared matrix without building it.
+    """
     b, p = ids.shape
     k = means_t.shape[1]
     sims = torch.zeros((b, k), dtype=torch.float32, device=ids.device)
@@ -46,13 +54,14 @@ def sparse_sim(ids, vals, means_t, *, with_counts: bool = False):
         for q in range(p):
             v = vals[s:e, q]
             m = means_t[ids[s:e, q].long()]
-            sims[s:e] += v[:, None] * m
+            sims[s:e] += v[:, None] * (m * m if square else m)
             if with_counts:
                 counts[s:e] += ((m > 0) & (v != 0)[:, None]).to(torch.int32)
     return sims, counts
 
 
-def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False):
+def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False,
+                 v_ta=None):
     """ES gathering phase (paper Alg. 3): per (b, k)
 
       rho12 = Σ over the exact region (id < t_th, or m >= v_th) of v·m
@@ -61,7 +70,9 @@ def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False):
       counts= Σ live·[m > 0 and exact]           (int32, when asked)
 
     ``id`` is compared against ``t_th`` as float32, as the Pallas kernel
-    does.  Returns (rho12, y, sims, counts-or-None).
+    does.  ``v_ta`` (B,) float32, when given, replaces the shared ``v_th``
+    by a per-row threshold (TA-ICP, paper App. F-A).  Returns (rho12, y,
+    sims, counts-or-None).
     """
     b, p = ids.shape
     k = means_t.shape[1]
@@ -77,7 +88,8 @@ def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False):
             c = v[:, None] * m
             sims[s:e] += c
             tail = (idq.to(torch.float32) >= t_th)[:, None]
-            exact = ~tail | (m >= v_th)
+            thr = v_th if v_ta is None else v_ta[s:e, None]
+            exact = ~tail | (m >= thr)
             rho12[s:e] += torch.where(exact, c, 0.0)
             y[s:e] += torch.where(exact, 0.0, v[:, None])
             if with_counts:
@@ -129,4 +141,56 @@ def rho_gather(assign, ids, vals, means_t):
         for off in (16, 8, 4, 2, 1):
             acc = acc[:, :off] + acc[:, off:2 * off]
         out[s:e] = acc[:, 0]
+    return out
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on any device (what the
+    kernels' ``__fsqrt_rn`` and XLA give).
+
+    torch's vectorised CPU square root misses the correctly rounded result
+    for some 0.6% of inputs, float32 and float64 alike, so a kernel and its
+    plain version, or the card and the CPU, would differ in the last bit.
+    The float64 root rounded to float32 is at most one ulp off; it is then
+    corrected with exact float64 arithmetic: the float32 neighbour whose
+    rounding interval (bounded by midpoints, whose squares are exact in
+    float64) holds x is kept.
+    """
+    y = torch.sqrt(x.double()).to(torch.float32)
+    lo = torch.nextafter(y, torch.zeros_like(y))
+    hi = torch.nextafter(y, torch.full_like(y, torch.inf))
+    yd, xd = y.double(), x.double()
+    m_lo = (lo.double() + yd) * 0.5
+    m_hi = (yd + hi.double()) * 0.5
+    return torch.where(xd < m_lo * m_lo, lo,
+                       torch.where(xd > m_hi * m_hi, hi, y))
+
+
+def doc_sketch(ids, vals, dim: int, sketch_size: int):
+    """(B, S) block-vector sketch: slot s = sqrt(Σ v²) over the row's
+    tuples with clip(id // g, 0, S-1) = s, g = ceil(dim / S) (as
+    ``repro.core.meanindex.doc_sketch``).  Each slot adds its rounded
+    squares in p order; dead slots add 0."""
+    b, p = ids.shape
+    g = -(-dim // sketch_size)
+    seg = torch.clamp(torch.div(ids, g, rounding_mode="floor"), 0,
+                      sketch_size - 1)
+    slots = torch.arange(sketch_size, device=ids.device)
+    acc = torch.zeros((b, sketch_size), dtype=torch.float32,
+                      device=ids.device)
+    for q in range(p):
+        v = vals[:, q:q + 1]
+        acc += torch.where(seg[:, q:q + 1] == slots, v * v, 0.0)
+    return sqrt_rn(acc)
+
+
+def sketch_sim(sk_docs, sketch_t):
+    """(B, S) × (S, K) -> (B, K) float32, each output the s-ordered sum of
+    rounded products (no fused multiply-add, no TF32)."""
+    b, s_dim = sk_docs.shape
+    k = sketch_t.shape[1]
+    out = torch.zeros((b, k), dtype=torch.float32, device=sk_docs.device)
+    for s, e in _row_chunks(b, k):
+        for q in range(s_dim):
+            out[s:e] += sk_docs[s:e, q:q + 1] * sketch_t[q]
     return out

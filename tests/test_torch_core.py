@@ -172,3 +172,43 @@ def test_init_state_from_explicit_seed_rows(small_corpus):
     with pytest.raises(ValueError, match="distinct"):
         tup.init_state(tdocs, 3, tmi.StructuralParams.trivial(docs.dim),
                        seed_rows=torch.tensor([1, 1, 2]))
+
+
+@pytest.mark.parametrize("d", [7, 32, 300, 1024, 5000, 40000])
+def test_column_dots_sum_in_repro_order(d):
+    """The column dots behind normalisation and drift equal repro's float32
+    sums bit for bit (one ulp near a dot of 1 is a drift of 3e-4)."""
+    rng = np.random.default_rng(d)
+    k = 5
+    a = rng.random((d, k)).astype(np.float32)
+    a[rng.random((d, k)) < 0.6] = 0.0
+    b = a.copy()
+    b[: d // 3] = rng.random((d // 3, k)).astype(np.float32)
+    want = np.asarray(jnp.sum(jnp.asarray(a) * jnp.asarray(b), axis=0))
+    got = tmi.column_dots(_t(a), _t(b))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    old = tmi.CHUNK_ELEMS
+    try:                                  # several row chunks per level
+        tmi.CHUNK_ELEMS = 64
+        np.testing.assert_array_equal(tmi.column_dots(_t(a), _t(b)).numpy(),
+                                      want)
+    finally:
+        tmi.CHUNK_ELEMS = old
+
+
+@pytest.mark.parametrize("k", [5, 16, 37])
+def test_max_center_drift_and_group_of_match_repro(k):
+    rng = np.random.default_rng(k + 1)
+    old = _unit_means(rng, 300, k).T.copy()
+    new = old.copy()
+    new[:, :2] = _unit_means(rng, 300, 2).T            # two centroids move
+    # equal dots; torch's and XLA's float32 arccos may differ by an ulp
+    want = np.asarray(jup.group_drift(jnp.asarray(new), jnp.asarray(old)))
+    np.testing.assert_allclose(tup.group_drift(_t(new), _t(old)).numpy(),
+                               want, rtol=1e-6, atol=1e-7)
+    assert float(tup.max_center_drift(_t(new), _t(old))) == pytest.approx(
+        float(jup.max_center_drift(jnp.asarray(new), jnp.asarray(old))),
+        rel=1e-6)
+    np.testing.assert_array_equal(tup.ub_group_of(k).numpy(),
+                                  np.asarray(jup.ub_group_of(k)))

@@ -114,3 +114,77 @@ def test_cuda_operand_the_kernel_cannot_take_raises(dev):
                        means.to(dev))
     with pytest.raises(ValueError, match="several devices"):
         ops.sparse_sim(ids.to(dev), vals, means.to(dev))
+
+
+@pytest.mark.parametrize("b,s,k", [(33, 1, 1), (4097, 64, 130), (5, 37, 1),
+                                   (70, 64, 10_000)])
+def test_sketch_sim_equal_plain(dev, b, s, k):
+    """B not a multiple of the 32-row tile, K = 1, S = 1, K not a multiple
+    of the 128-column tile; binarised operands count exactly."""
+    gen = torch.Generator().manual_seed(b + s + k)
+    x = torch.rand((b, s), generator=gen)
+    x[torch.rand((b, s), generator=gen) < 0.4] = 0.0
+    m = torch.rand((s, k), generator=gen)
+    ops.reset_counts()
+    got = ops.sketch_sim(x.to(dev), m.to(dev))
+    assert torch.equal(got, ref.sketch_sim(x.to(dev), m.to(dev)))
+    assert torch.equal(got.cpu(), ref.sketch_sim(x, m))
+    xb, mb = (x > 0).float(), (m > 0.5).float()
+    pairs = ops.sketch_sim(xb.to(dev), mb.to(dev))
+    assert torch.equal(pairs.cpu(), (xb.double() @ mb.double()).float())
+    assert ops.LAUNCHES["sketch_sim"] == 2 and ops.PLAIN["sketch_sim"] == 0
+
+
+@pytest.mark.parametrize("d", [300, 495_126])
+def test_doc_sketch_equal_plain(dev, d):
+    """Ids at the last group (clip boundary), dead slots with id 0, an
+    empty row, and more slots than a warp's pass."""
+    from repro_torch.core.meanindex import sketch_size
+
+    ids, vals, _, _ = _inputs(41, 100, min(d, 5000), 2, seed=6)
+    ids[3, :3] = torch.tensor([d - 3, d - 2, d - 1], dtype=torch.int32)
+    vals[3, :3] = 0.5
+    vals[4] = 0.0                                   # an empty row
+    s = sketch_size(d)
+    got = ops.doc_sketch(ids.to(dev), vals.to(dev), d, s)
+    assert got.shape == (41, s)
+    assert torch.equal(got, ref.doc_sketch(ids.to(dev), vals.to(dev), d, s))
+    assert torch.equal(got.cpu(), ref.doc_sketch(ids, vals, d, s))
+    assert float(got[3, s - 1]) > 0 and bool((got[4] == 0).all())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ta_gather_variant_equal_plain(dev, shape):
+    """A different v_ta on every row, v_ta = 0 on some rows."""
+    b = shape[0]
+    ids, vals, means, _ = _inputs(*shape, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    v_ta = torch.rand((b,), generator=gen) * 0.8
+    v_ta[::3] = 0.0
+    t_th = int(0.5 * shape[2])
+    g = [x.to(dev) for x in (ids, vals, means)]
+    ops.reset_counts()
+    got = ops.esicp_gather(*g, t_th, 0.0, with_counts=True,
+                           v_ta=v_ta.to(dev))
+    want = ref.esicp_gather(*g, t_th, 0.0, with_counts=True,
+                            v_ta=v_ta.to(dev))
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert bool((got[1][::3] == 0).all())           # v_ta = 0: no Region 3
+    assert ops.LAUNCHES["esicp_gather_ta"] == 1
+    assert ops.LAUNCHES["esicp_gather"] == 0
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_square_variant_equal_plain(dev, shape):
+    """The squared-rows launch at t_th = 0, where the substituted values
+    make the dead slots (id 0) live, as CS-ICP passes them."""
+    ids, vals, means, _ = _inputs(*shape, seed=9)
+    ones = (ids >= 0).to(torch.float32)
+    g = [x.to(dev) for x in (ids, ones, means)]
+    got, none = ops.sparse_sim(*g, square=True)
+    assert none is None
+    assert torch.equal(got, ref.sparse_sim(*g, square=True)[0])
+    assert torch.equal(got, ref.sparse_sim(g[0], g[1], g[2] * g[2])[0])
+    with pytest.raises(ValueError, match="no counts"):
+        ops.sparse_sim(*g, square=True, with_counts=True)

@@ -150,6 +150,10 @@ def test_ops_dispatch_cpu_to_plain_versions():
                      0.5)
     ops.segment_update(ta, ti, tv, k=37, d=300)
     ops.rho_gather(ta, ti, tv, tm)
+    ops.esicp_gather(ti, tv, tm, 100, 0.5, v_ta=torch.full((20,), 0.3))
+    ops.sparse_sim(ti, tv, tm, square=True)
+    sk = ops.doc_sketch(ti, tv, 300, 60)
+    ops.sketch_sim(sk, torch.ones((60, 37)))
     assert ops.PLAIN == dict.fromkeys(ops.KERNELS, 1)
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
     ops.reset_counts()
