@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py [--n-docs N] [--max-iter R] [--seed S]
+                          [--lm-batch B] [--lm-seq S]
 
 Needs one CUDA GPU of compute capability 9.0 (H100); exits non-zero
 without one, or when the package is missing beside this script.  Phases,
@@ -42,6 +43,30 @@ each of which fails the run on any error:
              D 495,126 on one corpus batch, with the bounds-esicp fit's
              means, thresholds and ρ_self (v_ta = ρ_self / ||x||_1).
 
+Then, with the clustering phases' memory freed, the LM serving path
+(gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``):
+
+9. lm kernels — flash_attention against its plain version at the
+             model's shapes (BH 8, S 4096, hd 256, window 512 and -1,
+             unit-normal inputs) and at (3, 200, 136, 64) window 48 (rows
+             with no live key), max abs err ≤ 2e-5; times from CUDA events
+             beside the plain version and ``scaled_dot_product_attention``;
+10. lm small — the gemma3 smoke config, parameters made on the CPU from
+             ``--seed`` and carried to the card, float32 compute on both:
+             prefill logits within 1e-4 and identical greedy tokens from
+             ``ServeLoop.generate`` (B 2, prompt 8, 16 new); on the card
+             the kernel launched and no plain version ran;
+11. lm main — gemma3-1b at full width, seeded weights on the card, bf16
+             compute: ``make_prefill_fn`` on ``--lm-batch`` × ``--lm-seq``
+             tokens (default 2 × 4096) with exactly one kernel launch per
+             layer (26) and no plain call, finite logits; the same prefill
+             with the plain attention agrees within twice the bf16 path's
+             own rounding error (bf16 vs float32 compute, kernel path),
+             top-1 included; ``ServeLoop(max_len=64).generate`` on B 4, a
+             32-token prompt and 32 new tokens; torch.profiler's device
+             time by kernel group, and the device's idle share, for one
+             prefill and for 7 decode steps.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -79,6 +104,7 @@ REPLACES = {
     # doc_sketch feeds sketch_sim; repro computes it with segment_sum.
     "doc_sketch": "src/repro/kernels/sketch_sim.py:25",
     "sketch_sim": "src/repro/kernels/sketch_sim.py:25",
+    "flash_attention": "src/repro/kernels/flash_attention.py:66",
 }
 SOURCES = {
     "esicp_gather": "src/repro_torch/csrc/gather.cu",
@@ -90,6 +116,7 @@ SOURCES = {
     "sparse_sim_square": "src/repro_torch/csrc/gather.cu",
     "doc_sketch": "src/repro_torch/csrc/sketch.cu",
     "sketch_sim": "src/repro_torch/csrc/sketch.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 # The kernels each main-path run must launch.
 PATH_KERNELS = {
@@ -690,6 +717,293 @@ def sketch_kernel_phase(torch, docs, model):
     return rows
 
 
+def attention_bound(bh: int, sq: int, hd: int, window: int):
+    """(bound, live pairs) of one banded-causal attention call: 4·hd fp32
+    operations per live (query, key) pair against q, k, v read once and
+    the output written once."""
+    pairs = sum(min(i + 1, window) if window >= 0 else i + 1
+                for i in range(sq)) * bh
+    return bound_ms(4 * bh * sq * hd * 4, 4 * hd * pairs), pairs
+
+
+def lm_kernel_phase(torch, seed: int):
+    """flash_attention against its plain version: the model's shapes and a
+    ragged shape with fully masked rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    t0 = phase("lm kernels: flash_attention")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tol = 2e-5
+    bh, s, hd = 8, 4096, 256
+    q, k, v = (torch.randn((bh, s, hd), generator=gen, device=dev)
+               for _ in range(3))
+    by_window = {}
+    for window in (512, -1):
+        got = ops.flash_attention(q, k, v, window=window)
+        want = ref.flash_attention(q, k, v, window)
+        err = check_close(torch, f"flash_attention window {window}", got,
+                          want, tol)
+        del want
+        if window < 0:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            band = ((pos[None, :] <= pos[:, None])
+                    & (pos[:, None] - pos[None, :] < window))
+            lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=band)
+        lib_err = max_err(torch, lib(), got)
+        bound, pairs = attention_bound(bh, s, hd, window)
+        by_window[window] = dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                          window=window)),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v,
+                                                                window), reps=3),
+            library_ms=time_ms(torch, lib), bound=bound)
+        r = by_window[window]
+        log(f"  BH {bh} S {s} hd {hd} window {window}: {pairs} live pairs; "
+            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
+            f"{bound[0]:.4f} ms by {bound[1]}, sdpa {r['library_ms']:.3f} ms)"
+            f" max abs err {err:.3g} (tolerance {tol}); sdpa vs kernel "
+            f"{lib_err:.3g}")
+    del q, k, v, got
+
+    # Sq != Sk, neither a multiple of the tile; rows >= 136 + 48 - 1 see
+    # no key and must give exactly 0.
+    q, k, v = (torch.randn((3, n, 64), generator=gen, device=dev)
+               for n in (200, 136, 136))
+    got = ops.flash_attention(q, k, v, window=48)
+    err = check_close(torch, "flash_attention (3, 200, 136, 64) window 48",
+                      got, ref.flash_attention(q, k, v, 48), tol)
+    require(bool((got[:, 183:] == 0).all()) and bool((got[:, :183] != 0).any()),
+            "flash_attention: the rows with no live key are not exactly 0")
+    log(f"  (3, 200, 136, 64) window 48: max abs err {err:.3g} (tolerance "
+        f"{tol}); rows 183-199 exactly 0")
+    row = dict(by_window[-1])
+    row["max_abs_err"] = max(err, *(r["max_abs_err"] for r in by_window.values()))
+    row["by_window"] = {str(w): dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                                     library_ms=r["library_ms"],
+                                     bound_ms=r["bound"][0],
+                                     max_abs_err=r["max_abs_err"])
+                        for w, r in by_window.items()}
+    log(f"lm kernel checks passed in {time.perf_counter() - t0:.1f} s")
+    return row
+
+
+def lm_small_phase(torch, seed: int):
+    """The gemma3 smoke config, float32 compute, on the card and on the
+    CPU from the same parameters: prefill logits and greedy tokens."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params, tree_to
+    from repro_torch.serve.lm import ServeLoop, make_prefill_fn
+
+    t0 = phase("lm small cross-check (cuda vs cpu), gemma3 smoke config")
+    cfg = gemma3_1b.smoke_config()
+    gen = torch.Generator().manual_seed(seed)
+    params = {"cpu": init_params(cfg, gen, device="cpu")}
+    params["cuda"] = tree_to(params["cpu"], "cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 37), generator=gen, dtype=torch.int32)
+    prompts = toks[:, :8]
+    f32 = torch.float32
+    lg, out = {}, {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_counts()
+        lg[dev] = make_prefill_fn(cfg, compute_dtype=f32)(params[dev],
+                                                          toks.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = ops.LAUNCHES["flash_attention"]
+            plain = ops.PLAIN["flash_attention"]
+        out[dev] = ServeLoop(cfg, params[dev], compute_dtype=f32).generate(
+            prompts.to(dev), n_new=16)
+    err = check_close(torch, "lm small prefill logits cuda vs cpu",
+                      lg["cuda"].cpu(), lg["cpu"], 1e-4)
+    require(launches >= 1 and plain == 0,
+            f"lm small: flash_attention launches {launches}, plain {plain}")
+    require(torch.equal(out["cuda"].cpu(), out["cpu"]),
+            f"lm small: greedy tokens differ cuda vs cpu:\n{out['cuda']}\n"
+            f"{out['cpu']}")
+    log(f"  prefill logits (2, {cfg.vocab}) max abs err {err:.3g} "
+        f"(tolerance 1e-4); kernel launches {launches}, plain 0")
+    log(f"  greedy tokens identical: {out['cpu'][:, 8:].tolist()}")
+    log(f"lm small cross-check passed in {time.perf_counter() - t0:.1f} s")
+
+
+def device_breakdown(torch, fn):
+    """(wall s, {group: device ms}, kernels) of one call of ``fn`` under
+    torch.profiler: device time of the kernels it ran, grouped as the
+    attention kernel, GEMMs and the rest; wall time by host clock around
+    work that ends in a synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    groups = {"flash_attention": 0.0, "gemm": 0.0, "other": 0.0}
+    by_name: dict = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        key = ("flash_attention" if "flash_kernel" in name else
+               "gemm" if any(w in name for w in ("gemm", "gemv", "xmma",
+                                                 "cutlass", "nvjet"))
+               else "other")
+        ms = e.time_range.elapsed_us() / 1e3
+        groups[key] += ms
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        n += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return wall, groups, n, top
+
+
+def log_breakdown(what: str, wall: float, groups: dict, n: int, top) -> None:
+    busy = sum(groups.values())
+    log(f"  {what}: wall {wall * 1e3:.1f} ms, {n} device kernels, device "
+        f"busy {busy:.1f} ms ({busy / (wall * 1e3):.1%}; idle "
+        f"{1 - busy / (wall * 1e3):.1%}): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in groups.items()))
+    for name, ms in top:
+        log(f"    {ms:8.2f} ms  {name[:100]}")
+
+
+class plain_attention:
+    """Routes the model's attention to the plain version on the card (for
+    the parity prefill only) by swapping ops.flash_attention."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+
+        self.ops, self.kernel = ops, ops.flash_attention
+        ops.flash_attention = lambda q, k, v, *, window=-1: \
+            ref.flash_attention(q, k, v, window)
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.kernel
+
+
+def lm_main_phase(torch, seed: int, batch: int, seq: int):
+    """gemma3-1b at full width: prefill (the kernel's path) and decode."""
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.lm import ServeLoop, make_prefill_fn
+
+    cfg = gemma3_1b.config()
+    t0 = phase(f"lm main path: {cfg.name} prefill B {batch} S {seq} + decode")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in params.values() if torch.is_tensor(t))
+    n_params += sum(t.numel() for lp in params["layers"] for t in lp.values())
+    require(n_params == cfg.n_params() == 999_812_736,
+            f"gemma3-1b has {n_params} parameters")
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    prefill = make_prefill_fn(cfg)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t = time.perf_counter()
+    logits = prefill(params, tokens)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    log(f"  kernel launches {launches}; plain calls {plain}")
+    require(launches["flash_attention"] == cfg.n_layers == 26,
+            f"prefill launched flash_attention "
+            f"{launches['flash_attention']} times, not once per layer")
+    require(all(n == 0 for n in plain.values()),
+            f"a plain version ran on the prefill: {plain}")
+    require(logits.shape == (batch, cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"prefill logits malformed: {tuple(logits.shape)}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(params, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    pre_s = statistics.median(times)
+    peak_prefill = torch.cuda.max_memory_allocated()
+    log(f"  prefill: {pre_s * 1e3:.1f} ms median of 3 (first call "
+        f"{cold_s * 1e3:.1f} ms), {batch * seq / pre_s:.0f} tokens/s; peak "
+        f"device memory {peak_prefill / 2**30:.2f} GiB (parameters "
+        f"{n_params * 4 / 2**30:.2f} GiB fp32)")
+
+    log_breakdown("prefill under the profiler",
+                  *device_breakdown(torch, lambda: prefill(params, tokens)))
+
+    # Parity: the same prefill with the plain attention, and the bf16
+    # path's own rounding error (float32 compute, kernel path).
+    with plain_attention():
+        ops.reset_counts()
+        plain_logits = prefill(params, tokens)
+        require(ops.LAUNCHES["flash_attention"] == 0,
+                "the parity prefill launched the kernel")
+    ref32 = make_prefill_fn(cfg, compute_dtype=torch.float32)(params, tokens)
+    a, b = logits.float(), plain_logits.float()
+    diff = float((a - b).abs().max())
+    noise = float((a - ref32).abs().max())
+    tol = 2 * noise
+    log(f"  parity: kernel vs plain attention (bf16 path) max abs logit diff "
+        f"{diff:.4g}; bf16 vs float32 compute (kernel) {noise:.4g}; "
+        f"tolerance 2 × that = {tol:.4g}; logits max |x| "
+        f"{float(a.abs().max()):.4g}")
+    require(diff <= tol, f"kernel vs plain prefill logits differ by {diff} "
+            f"> {tol}")
+    top_a, top_b = a.argmax(-1), b.argmax(-1)
+    for r in range(batch):
+        i, j = int(top_a[r]), int(top_b[r])
+        if i != j:
+            gap = max(abs(float(a[r, i] - a[r, j])), abs(float(b[r, i] - b[r, j])))
+            log(f"  row {r}: top-1 {i} vs {j}, logit gap {gap:.4g}")
+            require(gap <= tol, f"row {r}: top-1 differs by a gap {gap} > {tol}")
+    log(f"  top-1 equal in {int((top_a == top_b).sum())} of {batch} rows")
+    del plain_logits, ref32, a, b, logits
+
+    # Decode: teacher-forced prompt then greedy tokens, through the cache.
+    loop = ServeLoop(cfg, params, max_len=64)
+    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=dev,
+                            dtype=torch.int32)
+    steps = 32 + 32 - 1
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = loop.generate(prompts, n_new=32)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+    require(out.shape == (4, 64) and torch.equal(out[:, :32], prompts)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            "generate output malformed")
+    log_breakdown("7 decode steps under the profiler", *device_breakdown(
+        torch, lambda: loop.generate(prompts[:, :4], n_new=4)))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  decode: B 4, {steps} steps: {runs[1] / steps * 1e3:.2f} ms per "
+        f"step (first run {runs[0] / steps * 1e3:.2f} ms); new tokens of "
+        f"row 0: {out[0, 32:].tolist()}")
+    log(f"  peak device memory over the phase: {peak / 2**30:.2f} GiB")
+    del params, loop
+    torch.cuda.empty_cache()
+    log(f"lm main path done in {time.perf_counter() - t0:.1f} s")
+    return launches["flash_attention"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=200_000,
@@ -700,6 +1014,10 @@ def main() -> int:
     ap.add_argument("--small-iter", type=int, default=8,
                     help="iterations of the small cross-check's other modes")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-batch", type=int, default=2,
+                    help="batch of the gemma3-1b prefill")
+    ap.add_argument("--lm-seq", type=int, default=4096,
+                    help="tokens per row of the gemma3-1b prefill")
     args = ap.parse_args()
 
     import torch
@@ -749,6 +1067,14 @@ def main() -> int:
     for name, (count, algo) in variant_launches.items():
         launches[name] = count
         paths[name] = [f"small cross-check {algo} fit on the card"]
+    del docs, df
+    torch.cuda.empty_cache()
+
+    rows["flash_attention"] = lm_kernel_phase(torch, args.seed)
+    lm_small_phase(torch, args.seed)
+    launches["flash_attention"] = lm_main_phase(torch, args.seed,
+                                                args.lm_batch, args.lm_seq)
+    paths["flash_attention"] = ["gemma3-1b prefill"]
 
     kernels = []
     for name in SOURCES:
@@ -759,7 +1085,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            "path": ", ".join(paths[name])})
+            "path": ", ".join(paths[name]),
+            **({"by_window": r["by_window"]} if "by_window" in r else {})})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,44 @@
+"""Architecture registry of the port: the archs it can run.
+
+``repro.configs.registry.ARCHS`` lists ten; the port runs the
+dense-attention serving path, so far for gemma3-1b only.  Asking for one
+of the others raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 16
+lists what is left to port).
+"""
+from __future__ import annotations
+
+import importlib
+
+# Every arch of repro's registry, in its order.
+REPRO_ARCHS = [
+    "mixtral-8x22b",
+    "granite-moe-3b-a800m",
+    "xlstm-125m",
+    "qwen1.5-32b",
+    "gemma3-1b",
+    "gemma-2b",
+    "qwen2.5-32b",
+    "zamba2-2.7b",
+    "musicgen-large",
+    "chameleon-34b",
+]
+ARCHS = ["gemma3-1b"]
+
+
+def _module(name: str):
+    if name not in REPRO_ARCHS:
+        raise KeyError(f"unknown arch {name!r}; one of {REPRO_ARCHS}")
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1 item 16); "
+            f"the port runs {ARCHS}")
+    mod = name.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str):
+    return _module(name).config()
+
+
+def smoke_config(name: str):
+    return _module(name).smoke_config()

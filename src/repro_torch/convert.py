@@ -11,7 +11,8 @@ object's fields), so this module needs nothing of ``repro``.  For a
         labels=m.labels, rho_self=m.rho_self, history=m.history)
 
 With these, a model fitted by ``repro`` classifies identically in the port,
-and a ``repro`` state steps identically.
+and a ``repro`` state steps identically.  :func:`lm_params_from_numpy` does
+the same for an LM's parameters (``repro.models.init_params``).
 """
 from __future__ import annotations
 
@@ -75,3 +76,25 @@ def model_from_numpy(means_t, moving, t_th, v_th, *, labels=None,
         index=index_from_numpy(means_t, moving, t_th, v_th, device=dev),
         labels=opt(labels, np.int32), rho_self=opt(rho_self, np.float32),
         history=history, n_iter=len(history), algo=algo)
+
+
+def lm_params_from_numpy(tree, cfg, *, device="cuda") -> dict:
+    """The nested dict of numpy leaves of a ``repro`` LM parameter tree
+    (``jax.tree_util.tree_map(np.asarray, params)``), whose segment leaves
+    are stacked on a leading ``reps`` axis, -> the port's parameters: one
+    dict per layer in execution order (see ``models/transformer.py``)."""
+    from repro_torch.models.transformer import _check_kind
+
+    dev = resolve_device(device)
+    out = {name: _t(tree[name], np.float32, dev)
+           for name in ("embed", "final_norm", "lm_head") if name in tree}
+    layers = []
+    for si, seg in enumerate(cfg.segments):
+        for r in range(seg.reps):
+            for pi, spec in enumerate(seg.layers):
+                _check_kind(spec)
+                leaves = tree[f"seg{si}"][f"pos{pi}"]
+                layers.append({n: _t(a[r], np.float32, dev)
+                               for n, a in leaves.items()})
+    out["layers"] = layers
+    return out

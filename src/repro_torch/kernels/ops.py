@@ -20,7 +20,7 @@ from repro_torch.kernels import ref
 
 KERNELS = ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
            "sparse_sim", "esicp_gather_ta", "sparse_sim_square", "doc_sketch",
-           "sketch_sim")
+           "sketch_sim", "flash_attention")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN = dict.fromkeys(KERNELS, 0)
 
@@ -257,4 +257,39 @@ def sketch_sim(sk_docs, sketch_t):
     if b and k:
         kern.launch(sk_docs, sketch_t, out)
         LAUNCHES["sketch_sim"] += 1
+    return out
+
+
+def flash_attention(q, k, v, *, window: int = -1, sk_real: int | None = None):
+    """(BH, Sq, hd) x (BH, Sk, hd) -> (BH, Sq, hd) float32 banded-causal
+    attention (window < 0: full causal; keys at or past ``sk_real``, default
+    Sk, are masked; a row with no live key gives 0)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _need(t, name, torch.float32, 3)
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != hd:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} disagree")
+    sk_real = sk if sk_real is None else int(sk_real)
+    if not 0 <= sk_real <= sk:
+        raise ValueError(f"sk_real {sk_real} outside [0, {sk}]")
+    window = int(window)
+    if not _on_cuda(q, k, v):
+        PLAIN["flash_attention"] += 1
+        return ref.flash_attention(q, k, v, window, sk_real)
+    from repro_torch.kernels import flash_attention as kern
+
+    _contiguous(("q", q), ("k", k), ("v", v))
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not among the kernel's {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned for the kernel")
+    if not (bh and sq and sk):
+        return torch.zeros((bh, sq, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty((bh, sq, hd), dtype=torch.float32, device=q.device)
+    kern.launch(q, k, v, window, sk_real, out)
+    LAUNCHES["flash_attention"] += 1
     return out

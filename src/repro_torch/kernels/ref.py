@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the clustering kernels, in gather form.
+"""Plain PyTorch versions of the kernels: the clustering kernels in gather
+form, and banded-causal attention.
 
 They are the CPU path (``kernels/ops.py`` sends CPU tensors here) and the
 oracle ``chip_smoke.py`` holds each CUDA kernel against on the card.  None
@@ -19,11 +20,17 @@ for bit where the kernel's order is fixed:
 * ``rho_gather`` — lane l of a 32-lane warp sums slots l, l+32, ... and a
   butterfly folds the lanes.
 
-Conventions shared with the kernels: a slot is *live* iff its value is
+``flash_attention`` is the exception: it materialises the (Sq, Sk) scores
+and softmax, as ``repro/kernels/ref.py:flash_attention`` does, and so
+agrees with the online-softmax kernel to a tolerance, not bit for bit.
+
+Conventions shared with the clustering kernels: a slot is *live* iff its value is
 nonzero (a dead slot, id 0 and value 0, adds nothing anywhere, counts
 included); an assignment outside [0, K) selects no centroid.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -194,3 +201,26 @@ def sketch_sim(sk_docs, sketch_t):
         for q in range(s_dim):
             out[s:e] += sk_docs[s:e, q:q + 1] * sketch_t[q]
     return out
+
+
+def flash_attention(q, k, v, window: int = -1, sk_real: int | None = None):
+    """(BH, Sq, hd) x (BH, Sk, hd) banded-causal attention, float32.
+
+    Query and key positions both start at 0; key k_pos is live for query
+    q_pos iff k_pos <= q_pos, q_pos - k_pos < window (window < 0: full
+    causal) and k_pos < sk_real (default Sk).  Masked scores are -1e30, and
+    a row with no live key gives 0.
+    """
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    sk_real = sk if sk_real is None else sk_real
+    s = torch.einsum("bqd,bkd->bqk", q, k) / math.sqrt(float(hd))
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = (kp <= qp) & (kp < sk_real)
+    if window >= 0:
+        mask &= (qp - kp) < window
+    s = torch.where(mask[None], s, -1e30)
+    probs = torch.softmax(s, dim=-1)
+    probs = torch.where(mask.any(dim=1)[None, :, None], probs, 0.0)
+    return torch.einsum("bqk,bkd->bqd", probs, v)

@@ -188,3 +188,61 @@ def test_square_variant_equal_plain(dev, shape):
     assert torch.equal(got, ref.sparse_sim(g[0], g[1], g[2] * g[2])[0])
     with pytest.raises(ValueError, match="no counts"):
         ops.sparse_sim(*g, square=True, with_counts=True)
+
+
+# (bh, sq, sk, hd, window, sk_real): tails of the 32-row and 32-key tiles,
+# Sq != Sk with rows that see no key, the hd 256 tile, every head dim.
+FLASH_SHAPES = [(2, 64, 64, 32, -1, None), (3, 200, 136, 64, 48, None),
+                (4, 256, 256, 128, 48, None), (2, 300, 300, 256, -1, None),
+                (2, 300, 300, 256, 100, None), (1, 37, 37, 16, 8, None),
+                (2, 128, 128, 32, 20, 90)]
+
+
+@pytest.mark.parametrize("bh,sq,sk,hd,window,sk_real", FLASH_SHAPES)
+def test_flash_attention_close_to_plain(dev, bh, sq, sk, hd, window, sk_real):
+    """Max abs err 2e-5 (as tests/test_kernels.py holds the Pallas kernel);
+    rows with no live key exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(bh * sq + hd)
+    q, k, v = (torch.randn((bh, n, hd), generator=gen, device=dev)
+               for n in (sq, sk, sk))
+    ops.reset_counts()
+    got = ops.flash_attention(q, k, v, window=window, sk_real=sk_real)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.PLAIN["flash_attention"] == 0
+    want = ref.flash_attention(q, k, v, window, sk_real)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got.cpu(), ref.flash_attention(
+        q.cpu(), k.cpu(), v.cpu(), window, sk_real), rtol=2e-5, atol=2e-5)
+    live_keys = min(sk, sk if sk_real is None else sk_real)
+    if window > 0 and sq >= live_keys + window:
+        assert bool((got[:, live_keys + window - 1:] == 0).all())
+
+
+def test_flash_attention_prefill_launches_once_per_layer(dev):
+    from repro_torch.configs import gemma3_1b
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.lm import make_prefill_fn
+
+    cfg = gemma3_1b.smoke_config()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 45), device=dev)
+    ops.reset_counts()
+    out = make_prefill_fn(cfg)(params, toks)
+    torch.cuda.synchronize()
+    assert out.shape == (2, cfg.vocab) and bool(torch.isfinite(out).all())
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.PLAIN["flash_attention"] == 0
+
+
+def test_flash_attention_operands_the_kernel_cannot_take_raise(dev):
+    q = torch.zeros((2, 40, 32), device=dev)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                            q, q)
+    odd = torch.zeros((2, 40, 24), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(odd, odd, odd)

@@ -165,7 +165,10 @@ def test_package_imports_neither_jax_nor_repro():
             " import repro_torch.kernels.esicp_gather,"
             " repro_torch.kernels.sparse_sim, repro_torch.kernels.esicp_filter,"
             " repro_torch.kernels.segment_update,"
-            " repro_torch.kernels.rho_gather;"
+            " repro_torch.kernels.rho_gather,"
+            " repro_torch.kernels.flash_attention, repro_torch.serve.lm,"
+            " repro_torch.models.transformer, repro_torch.configs.registry,"
+            " repro_torch.configs.gemma3_1b;"
             " bad = [m for m in sys.modules if m == 'jax' or"
             " m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " print(bad); sys.exit(1 if bad else 0)")

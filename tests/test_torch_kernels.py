@@ -154,6 +154,8 @@ def test_ops_dispatch_cpu_to_plain_versions():
     ops.sparse_sim(ti, tv, tm, square=True)
     sk = ops.doc_sketch(ti, tv, 300, 60)
     ops.sketch_sim(sk, torch.ones((60, 37)))
+    qkv = torch.ones((2, 5, 16))
+    ops.flash_attention(qkv, qkv, qkv, window=3)
     assert ops.PLAIN == dict.fromkeys(ops.KERNELS, 1)
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
     ops.reset_counts()
