@@ -14,8 +14,11 @@ each of which fails the run on any error:
 3. kernels — each of the five main-path kernels of the ES-ICP fit against
              its plain PyTorch version on the card at the main path's
              shapes (B 4096, K 10,000, D 495,126, P from the corpus), with
-             the tolerance stated beside it; segment_update run twice and
-             held bitwise; times from CUDA events;
+             the tolerance stated beside it; times from CUDA events.
+             segment_update runs from the term-major layout the corpus
+             builds once (its build time and bytes printed), twice and held
+             bitwise, and bit for bit against the CPU plain version at
+             20,000 documents x K 1,000;
 4. small   — small fits on the card and on the CPU (plain versions), all
              nine algorithm modes (ES-ICP to convergence, the other eight
              to ``--small-iter`` iterations), and a classify: identical
@@ -41,7 +44,10 @@ each of which fails the run on any error:
              per-row-threshold (``ta``) and squared-rows variants against
              their plain versions, bit for bit, at B 4096, S 64, K 10,000,
              D 495,126 on one corpus batch, with the bounds-esicp fit's
-             means, thresholds and ρ_self (v_ta = ρ_self / ||x||_1).
+             means, thresholds and ρ_self (v_ta = ρ_self / ||x||_1);
+             sketch_sim also on the Region-3 tail sketch (doc tail at t_th
+             against ``region3_sketch``), with its no-FMA floor printed
+             beside the bound.
 
 Then, with the clustering phases' memory freed, the LM serving path
 (gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``):
@@ -140,19 +146,24 @@ def phase(name: str):
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
-    """Median milliseconds of ``fn`` from CUDA events, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    """Median milliseconds per call of ``fn`` from CUDA events, after one
+    warm-up.  A rep runs enough calls back to back to last about 2 ms, so
+    the host's cost of launching a short kernel does not count as device
+    time."""
+    def run(calls: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / calls
+
+    fn()
+    torch.cuda.synchronize()
+    calls = max(1, min(50, int(2.0 / max(run(1), 1e-3))))
+    return statistics.median(run(calls) for _ in range(reps))
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -179,6 +190,11 @@ def check_close(torch, name, got, want, tol):
     err = max_err(torch, got, want)
     require(ok, f"{name}: max abs err {err} above tolerance {tol}")
     return err
+
+
+def extra_text(row) -> str:
+    return "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
+                   for k, v in row.get("extra", {}).items())
 
 
 def check_equal(torch, name, got, want):
@@ -246,18 +262,28 @@ def kernel_phase(torch, docs, seed: int):
     nnz_all = int(docs.nnz.sum())
     rows = {}
 
-    # segment_update over the whole corpus (the update's shape); every 97th
+    # segment_update over the whole corpus (the update's shape), through
+    # the term-major layout the documents build once and keep; every 97th
     # row is assigned K, which must contribute nothing.
+    from repro_torch.sparse.matrix import SparseDocs, term_major
+
     assign = torch.randint(0, k, (n,), generator=gen, device=dev,
                            dtype=torch.int32)
     assign[::97] = k
-    lam = ops.segment_update(assign, docs.ids, vals_all, k=k, d=d)
-    lam2 = ops.segment_update(assign, docs.ids, vals_all, k=k, d=d)
+    layout_ms = time_ms(torch, lambda: term_major(docs.ids, vals_all, d=d),
+                        reps=3)
+    layout = docs.by_term
+    nnz_t = layout.rows.numel()
+    layout_bytes = sum(t.numel() * t.element_size() for t in layout)
+    log(f"  term_major layout: {nnz_t} postings, {layout_bytes} bytes "
+        f"({layout_bytes / 2**30:.3f} GiB), built in {layout_ms:.3f} ms "
+        f"(once per corpus)")
+    lam = ops.segment_update(assign, docs, k=k)
+    lam2 = ops.segment_update(assign, docs, k=k)
     _, _, same = chunked_compare(torch, lam, lam2, 0.0)
     require(same, "segment_update: two runs differ bitwise")
     del lam2
-    ms = time_ms(torch, lambda: ops.segment_update(assign, docs.ids, vals_all,
-                                                   k=k, d=d), reps=3)
+    ms = time_ms(torch, lambda: ops.segment_update(assign, docs, k=k))
     lam_p = ref.segment_update(assign, docs.ids, vals_all, k, d)
     ok, err, _ = chunked_compare(torch, lam, lam_p, 1e-4)
     require(ok, f"segment_update: max abs err {err} above 1e-4")
@@ -278,7 +304,27 @@ def kernel_phase(torch, docs, seed: int):
     live_rows = int(((assign < k)[:, None] & (vals_all != 0)).sum())
     rows["segment_update"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound=bound_ms(n * p * 8 + n * 4 + d * k * 4, live_rows))
+        bound=bound_ms(layout_bytes + n * 4 + d * k * 4, live_rows),
+        extra=dict(layout_ms=layout_ms, layout_bytes=layout_bytes))
+
+    # Bit for bit against the CPU plain version at a size the host holds:
+    # 20,000 documents, K 1,000, assignments K and -1 among them.
+    n_h, k_h = min(n, 20_000), 1_000
+    h_assign = torch.randint(0, k_h, (n_h,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    h_assign[::97] = k_h
+    h_assign[1::89] = -1
+    h_docs = SparseDocs(docs.ids[:n_h].contiguous(),
+                        docs.vals[:n_h].contiguous(), docs.nnz[:n_h], d)
+    got = ops.segment_update(h_assign, h_docs, k=k_h).cpu()
+    want = ref.segment_update(h_assign.cpu(), h_docs.ids.cpu(),
+                              h_docs.live_vals().cpu(), k_h, d)
+    require(torch.equal(got, want), "segment_update: differs from the CPU "
+            f"plain version at {n_h} documents, K {k_h}")
+    log(f"  segment_update bitwise equal to the CPU plain version at "
+        f"{n_h} documents x K {k_h} (D {d}); two full-width runs bitwise "
+        f"equal")
+    del got, want
 
     # Realistic means: the normalised cluster sums of that assignment.
     means_t = normalized_means(lam, lam)
@@ -381,7 +427,8 @@ def kernel_phase(torch, docs, seed: int):
     for name, r in rows.items():
         log(f"  {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound"
             f" {r['bound'][0]:.3f} ms by {r['bound'][1]}, library "
-            f"{r['library_ms']}) max abs err {r['max_abs_err']:.3g}")
+            f"{r['library_ms']}{extra_text(r)}) max abs err "
+            f"{r['max_abs_err']:.3g}")
     log(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -528,7 +575,9 @@ def breakdown_phase(torch, docs, df, model, algo: str = "esicp",
     from repro_torch.core.backends import KernelBackend
     from repro_torch.core.estparams import estimate_params
     from repro_torch.core.lloyd import _epoch
-    from repro_torch.core.update import KMeansState, n_ub_groups, update_step
+    from repro_torch.core.update import (KMeansState, n_ub_groups,
+                                         update_step)
+    from repro_torch.sparse.matrix import term_major
 
     phase(f"breakdown of one more {algo} iteration")
     n = docs.n_docs
@@ -547,6 +596,8 @@ def breakdown_phase(torch, docs, df, model, algo: str = "esicp",
         out[name] = time.perf_counter() - t
         return res
 
+    timed("term_major layout (once per corpus)", lambda: term_major(
+        docs.ids, docs.live_vals(), d=docs.dim))
     assign, ub, _, _, _ = timed("assignment epoch", lambda: _epoch(
         algo, bk, docs, state, BATCH))
     new = timed("update step", lambda: update_step(
@@ -613,7 +664,7 @@ def sketch_kernel_phase(torch, docs, model):
     """The sketch kernels and the two gather variants against their plain
     versions at the main path's shapes, with a fitted model's means,
     thresholds and ρ_self."""
-    from repro_torch.core.meanindex import sketch_size
+    from repro_torch.core.meanindex import region3_sketch, sketch_size
     from repro_torch.kernels import ops, ref
 
     t0 = phase("sketch kernels and gather variants")
@@ -656,14 +707,43 @@ def sketch_kernel_phase(torch, docs, model):
     lib = torch.matmul(dsk, sk_t)
     log(f"  sketch_sim bitwise equal to plain; torch.matmul (no TF32) max "
         f"abs diff {max_err(torch, lib, got):.3g}")
+    # bounds-esicp's Region-3 product: the doc tail at t_th against the
+    # means' Region-3 sketch; the tail's groups below t_th are zero in
+    # every document, which the kernel's zero skip leaves out.
+    r3 = region3_sketch(index)
+    tail = torch.where(b_ids >= params.t_th, b_vals, 0.0)
+    dsk_tail = ops.doc_sketch(b_ids, tail, d, s_dim)
+    got_r3 = ops.sketch_sim(dsk_tail, r3)
+    check_equal(torch, "sketch_sim region 3", got_r3,
+                ref.sketch_sim(dsk_tail, r3))
+    ones_t = (dsk_tail > 0).float()
+    check_equal(torch, "sketch_sim region 3 pairs",
+                ops.sketch_sim(ones_t, (r3 > 0).float()),
+                ref.sketch_sim(ones_t, (r3 > 0).float()))
+
+    def live_share(x):
+        """Share of (warp, s) pairs the kernel computes: a warp's 16 rows
+        are rows 8w..8w+7 of each 64-row half of a 128-row tile."""
+        x = torch.nn.functional.pad(x, (0, 0, 0, (-x.shape[0]) % 128))
+        x = x.view(-1, 2, 8, 8, x.shape[1]) != 0
+        return float(x.any(3).any(1).float().mean())
+
+    ops_n = 2 * BATCH * s_dim * k
+    r3_ms = time_ms(torch, lambda: ops.sketch_sim(dsk_tail, r3))
+    log(f"  sketch_sim region 3 (t_th {params.t_th}) bitwise equal to "
+        f"plain; live (warp, s) share: gate {live_share(dsk):.4f}, region 3 "
+        f"{live_share(dsk_tail):.4f}; region-3 call {r3_ms:.3f} ms")
     rows["sketch_sim"] = dict(
         max_abs_err=0.0,
         ms=time_ms(torch, lambda: ops.sketch_sim(dsk, sk_t)),
         plain_ms=time_ms(torch, lambda: ref.sketch_sim(dsk, sk_t), reps=3),
         library_ms=time_ms(torch, lambda: torch.matmul(dsk, sk_t)),
-        bound=bound_ms((BATCH * s_dim + s_dim * k + BATCH * k) * 4,
-                       2 * BATCH * s_dim * k))
-    del got, pairs, lib
+        bound=bound_ms((BATCH * s_dim + s_dim * k + BATCH * k) * 4, ops_n),
+        # Without fused multiply-adds each of the ops_n operations is one
+        # FP32 instruction, at half the fused rate.
+        extra=dict(no_fma_floor_ms=ops_n / (FP32_FLOPS / 2) * 1e3,
+                   region3_ms=r3_ms))
+    del got, pairs, lib, got_r3, dsk_tail, tail
 
     # The ta variant with v_ta = ρ_self / ||x||_1 (as _ta_icp forms it).
     l1 = b_vals.sum(dim=1, dtype=torch.float64).to(torch.float32)
@@ -712,7 +792,7 @@ def sketch_kernel_phase(torch, docs, model):
     for name, r in rows.items():
         log(f"  {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound"
             f" {r['bound'][0]:.4f} ms by {r['bound'][1]}, library "
-            f"{r['library_ms']}) bitwise equal to plain")
+            f"{r['library_ms']}{extra_text(r)}) bitwise equal to plain")
     log(f"sketch kernel checks passed in {time.perf_counter() - t0:.1f} s")
     return rows
 
@@ -1085,7 +1165,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            "path": ", ".join(paths[name]),
+            "path": ", ".join(paths[name]), **r.get("extra", {}),
             **({"by_window": r["by_window"]} if "by_window" in r else {})})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi_line)

@@ -105,10 +105,10 @@ class KernelBackend:
         """ES bound (Eq. 4) -> (survivor mask (B, K) bool, |Z_i| (B,) int32)."""
         return ops.esicp_filter(rho12, y, rho_self, col_ok, v_th)
 
-    def accumulate_means(self, ids, vals, assign, *, k: int, dim: int):
-        """(D, K) transposed cluster sums λ_t; dead slots (vals 0) and
+    def accumulate_means(self, docs, assign, *, k: int):
+        """(D, K) transposed cluster sums λ_t of ``docs``' live tuples;
         assignments outside [0, K) contribute nothing."""
-        return ops.segment_update(assign, ids, vals, k=k, d=dim)
+        return ops.segment_update(assign, docs, k=k)
 
     def self_sims(self, ids, vals, assign, means_t):
         """(B,) ρ against each object's own centroid (0 outside [0, K))."""

@@ -129,9 +129,8 @@ def update_step(docs: SparseDocs, assign: torch.Tensor,
     ``ub`` is the assignment step's refreshed bound (None keeps the
     previous state's); either way it is loosened by this update's drift.
     """
-    vals = torch.where(docs.row_mask(), docs.vals, 0.0)
-    lam_t = backend.accumulate_means(docs.ids, vals, assign, k=k,
-                                     dim=docs.dim)
+    vals = docs.live_vals()
+    lam_t = backend.accumulate_means(docs, assign, k=k)
     means_t = normalized_means(lam_t, prev_state.index.means_t)
     index = build_mean_index(means_t, params,
                              moving=moving_flags(assign, prev_assign, k))

@@ -165,25 +165,31 @@ def esicp_filter(rho12, y, rho_max, col_ok, v_th):
     return mask, count
 
 
-def segment_update(assign, ids, vals, *, k: int, d: int):
-    """(D, K) float32 transposed cluster sums λ_t (assignments outside
-    [0, K) and dead slots contribute nothing)."""
-    _check_tuples(ids, vals)
+def segment_update(assign, docs, *, k: int):
+    """(D, K) float32 transposed cluster sums λ_t of the live tuples of
+    ``docs`` (a :class:`repro_torch.sparse.matrix.SparseDocs`); assignments
+    outside [0, K) contribute nothing.
+
+    On the card the kernel walks ``docs.by_term``, the term-major layout
+    the documents build on first use and keep, so a fit sorts once.
+    """
+    _check_tuples(docs.ids, docs.vals)
     _need(assign, "assign", torch.int32, 1)
-    if assign.shape[0] != ids.shape[0]:
+    if assign.shape[0] != docs.n_docs:
         raise ValueError("assign must have one entry per row")
-    if not _on_cuda(assign, ids, vals):
+    if not _on_cuda(assign, docs.ids, docs.vals, docs.nnz):
         PLAIN["segment_update"] += 1
-        return ref.segment_update(assign, ids, vals, k, d)
+        return ref.segment_update(assign, docs.ids, docs.live_vals(), k,
+                                  docs.dim)
     from repro_torch.kernels import segment_update as kern
 
-    lam_t = torch.zeros((d, k), dtype=torch.float32, device=ids.device)
-    # Rows outside [0, K) and dead slots leave before any index is formed.
-    sel = ((assign >= 0) & (assign < k))[:, None] & (vals != 0)
-    keys = (ids.long() * k + assign.long()[:, None])[sel]
-    if keys.numel():
-        keys, order = torch.sort(keys, stable=True)
-        kern.launch(keys, vals[sel][order].contiguous(), lam_t)
+    _contiguous(("assign", assign))
+    # The layout first: its one-off build's transients come before λ_t.
+    layout = docs.by_term
+    lam_t = torch.empty((docs.dim, k), dtype=torch.float32,
+                        device=assign.device)
+    if docs.dim and k:
+        kern.launch(layout, assign, lam_t)
         LAUNCHES["segment_update"] += 1
     return lam_t
 

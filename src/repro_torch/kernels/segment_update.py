@@ -5,21 +5,29 @@ Replaces ``repro/kernels/segment_update.py:segment_update_pallas``
 the transposed (D, K) layout, so the new means_t is λ normalised in place —
 never a 20 GB transpose at the NYT widths.
 
-Design: the wrapper (kernels/ops.py) drops dead slots and rows whose
-assignment lies outside [0, K), forms each live tuple's flat output index
-``id·K + assign`` (int64), and sorts those keys stably with ``torch.sort``,
-so equal keys keep their row order.  The kernel (``csrc/segment_update.cu``)
-is a segmented reduction: the head of each run of equal keys sums the run
-in order and stores it.  No fp32 atomics, so the sums are deterministic and
-bitwise repeatable, and each is taken in row order — ``repro``'s scatter
-order.  Duplicate ids within a row need no precondition: they are equal
-keys and add up in slot order.  Plain version:
-:func:`repro_torch.kernels.ref.segment_update`.
+Design: term-major.  A fit's documents do not change between iterations,
+only ``assign`` does, so the documents turn their (N, P) tuple rows into a
+term-major layout once (``SparseDocs.by_term``, built by
+:func:`repro_torch.sparse.matrix.term_major` on first use and kept; one
+stable sort of the flattened ids, set-up and not the ported kernel): each
+term's postings (row, value) in (row, slot) order, dead slots dropped.
+``ops.segment_update`` takes the documents, so the layout it walks is
+always their own.  The kernel
+(``csrc/segment_update.cu``) runs one block per row d of λ_t, the longest
+posting lists first: it sums the row in shared memory, reading
+``assign[row]`` per posting, and writes the whole row once with 16-byte
+stores.  So a call allocates λ_t with ``torch.empty``, forms no keys,
+sorts nothing, compacts nothing and never waits on the host.  Each λ_t
+entry adds its tuples in (row, slot) order from +0, with no fp32 atomics:
+the order of the CPU's sequential ``index_add_`` and of ``repro``'s
+scatter, so the sums are bitwise repeatable and equal to the plain
+version's.  Plain version: :func:`repro_torch.kernels.ref.segment_update`
+(row-major; the CPU never builds the layout).
 
-What bounds it on the card: bytes.  λ must be written once (D·K·4 bytes,
-19.8 GB at the NYT widths, the zero fill included) against nnz tuples read;
-the sort of the nnz keys and the scattered stores come on top.  The TPU
-kernel's one-hot MXU matmul has no counterpart.
+What bounds it on the card: bytes.  λ_t is written once (D·K·4 bytes,
+19.8 GB at the NYT widths) against nnz·8 bytes of postings, the gathered
+assignments, ``ptr`` and ``order`` read once.  The TPU kernel's one-hot
+MXU matmul has no counterpart.
 """
 from __future__ import annotations
 
@@ -28,15 +36,19 @@ from repro_torch.kernels.ref import segment_update as plain  # noqa: F401
 
 _SIG = {
     "segment_update_launch": (_build.c_int, [
-        _build.ptr, _build.ptr, _build.c_longlong, _build.ptr, _build.ptr]),
+        _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.ptr,
+        _build.c_int, _build.c_int, _build.ptr, _build.ptr]),
 }
 
 
-def launch(keys, vals, lam_t) -> None:
-    """Launch on the current stream over sorted int64 ``keys`` and their
-    ``vals``; ``lam_t`` is zeroed by the caller."""
+def launch(by_term, assign, lam_t) -> None:
+    """Launch on the current stream over a
+    :class:`repro_torch.sparse.matrix.TermMajor`; ``lam_t`` (D, K) is
+    written whole."""
     lib = _build.load("segment_update", _SIG)
-    rc = lib.segment_update_launch(keys.data_ptr(), vals.data_ptr(),
-                                   keys.numel(), lam_t.data_ptr(),
-                                   _build.stream_ptr(keys.device))
+    d, k = lam_t.shape
+    rc = lib.segment_update_launch(
+        by_term.ptr.data_ptr(), by_term.rows.data_ptr(),
+        by_term.vals.data_ptr(), by_term.order.data_ptr(), assign.data_ptr(),
+        d, k, lam_t.data_ptr(), _build.stream_ptr(lam_t.device))
     _build.check(lib, "segment_update", rc)

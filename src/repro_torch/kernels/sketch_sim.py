@@ -19,13 +19,17 @@ What bounds it on the card.  At B 4096, S 64, K 10,000 sketch_sim is
 5.2·10^9 floating-point operations (0.078 ms at the 67 TFLOP/s fp32 rate)
 against 164 MB of output (0.049 ms at 3.35 TB/s): operations.  The
 no-FMA rule that keeps it bit-equal to its plain version makes each
-multiply-add two instructions, so the operations bound is half what a
-fused kernel could reach.  The TPU kernel was one MXU dot per 128-row
-block with S padded to 128 lanes; here a block stages a 32-document ×
-128-column tile's operands in 40 KB of shared memory and each thread
-keeps a 4 × 4 register micro-tile, in fp32 on the CUDA cores (no tensor
-cores, no TF32).  doc_sketch reads the (B, P) tuples once (one warp per
-document): bytes.
+multiply-add two FP32 instructions, so its floor is twice that, 0.157 ms
+(and such a loop does not reach the data-sheet FP32 rate).  The TPU kernel was one MXU dot per 128-row block with
+S padded to 128 lanes; here one persistent block per SM walks 128 × 128
+output tiles, copies each tile's operands (64 KB) into shared memory with
+cp.async while the previous tile computes, and each thread keeps an
+8 × 8 register micro-tile fed by 16-byte shared loads, so the FP32 pipe
+sets the pace (no tensor cores, no TF32).  A warp skips an s whose x is
+zero in all 16 of its rows, exactly (finite mean sketches: ±0 products
+change no bit); that cuts the Region-3 tail product of ``bounds-esicp``
+to its groups at or past t_th.  doc_sketch reads the (B, P) tuples once
+(one warp per document): bytes.
 """
 from __future__ import annotations
 

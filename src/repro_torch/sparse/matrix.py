@@ -9,6 +9,8 @@ stays in bounds and every product contributes nothing.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +29,9 @@ class SparseDocs:
     dim:  vocabulary size D.
     _df:  optional (D,) int32 document frequencies (the corpus builders
           attach them with :func:`with_df`); read through ``df``.
+
+    The tensors are not changed in place after construction: ``by_term``
+    is derived from them once and kept.
     """
 
     ids: torch.Tensor
@@ -52,6 +57,17 @@ class SparseDocs:
         p = torch.arange(self.pad_width, device=self.device)
         return p[None, :] < self.nnz[:, None]
 
+    def live_vals(self) -> torch.Tensor:
+        """(N, P) values with every slot past a row's nnz set to 0."""
+        return torch.where(self.row_mask(), self.vals, 0.0)
+
+    @functools.cached_property
+    def by_term(self) -> TermMajor:
+        """The live tuples term-major (:func:`term_major`), built on first
+        use and kept: the update's ``segment_update`` kernel walks it at
+        every Lloyd iteration, and the documents never change."""
+        return term_major(self.ids, self.live_vals(), d=self.dim)
+
     @property
     def df(self) -> torch.Tensor:
         """(D,) document frequency of each term (counted when not attached)."""
@@ -65,7 +81,11 @@ class SparseDocs:
                           self.nnz[start:end], self.dim)
 
     def to(self, device) -> SparseDocs:
+        """These documents on ``device``: self when they are there already
+        (``"cuda"`` names the current card), so ``by_term`` is kept."""
         dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         if self.device == dev:
             return self
         mv = lambda t: None if t is None else t.to(dev)
@@ -89,6 +109,45 @@ class SparseDocs:
             if int(lo) < 0 or int(hi) >= self.dim:
                 raise ValueError(f"term ids must lie in [0, {self.dim})")
         return self
+
+
+class TermMajor(NamedTuple):
+    """Tuples term-major (see :func:`term_major`).
+
+    ptr:   (D + 1,) int64 — term d's postings are [ptr[d], ptr[d + 1]).
+    rows:  (nnz,) int32 — each posting's document row.
+    vals:  (nnz,) float32 — each posting's value (never 0).
+    order: (D,) int32 — the terms by posting count, longest first.
+    """
+
+    ptr: torch.Tensor
+    rows: torch.Tensor
+    vals: torch.Tensor
+    order: torch.Tensor
+
+
+def term_major(ids: torch.Tensor, vals: torch.Tensor, *, d: int
+               ) -> TermMajor:
+    """The term-major layout of (N, P) tuple rows over D terms.
+
+    Slots whose value is 0 (padding, masked tuples) are dropped; within a
+    term the postings keep (row, slot) order, so duplicate ids within a
+    row stay in slot order.  Built with one stable sort of the row-major
+    flattened ids, on the tuples' device.  Memory: nnz·8 bytes, plus
+    8·(D + 1) + 4·D.
+    """
+    n, _ = ids.shape
+    live = vals != 0
+    rows = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=ids.device), live.sum(dim=1))
+    flat_ids = ids[live]
+    _, perm = torch.sort(flat_ids, stable=True)
+    counts = torch.bincount(flat_ids.long(), minlength=d)
+    ptr = torch.zeros((d + 1,), dtype=torch.int64, device=ids.device)
+    torch.cumsum(counts, dim=0, out=ptr[1:])
+    order = torch.argsort(counts, descending=True, stable=True)
+    return TermMajor(ptr, rows[perm].contiguous(),
+                     vals[live][perm].contiguous(), order.to(torch.int32))
 
 
 def from_dense(x, pad_to: int | None = None, *, device="cuda") -> SparseDocs:
@@ -116,7 +175,7 @@ def to_dense(docs: SparseDocs) -> torch.Tensor:
     n, p = docs.ids.shape
     out = torch.zeros((n, docs.dim), dtype=docs.vals.dtype, device=docs.device)
     rows = torch.arange(n, device=docs.device).repeat_interleave(p)
-    vals = torch.where(docs.row_mask(), docs.vals, 0.0).reshape(-1)
+    vals = docs.live_vals().reshape(-1)
     out.index_put_((rows, docs.ids.reshape(-1).long()), vals, accumulate=True)
     return out
 

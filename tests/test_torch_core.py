@@ -155,6 +155,48 @@ def test_estimate_params_identical(warm, grid):
     assert aux["J"].dtype == torch.float64
 
 
+class _TermMajorBackend(KernelBackend):
+    """λ_t summed posting by posting over the documents' term-major
+    layout, in the CUDA kernel's order."""
+
+    def accumulate_means(self, docs, assign, *, k: int):
+        tm, d = docs.by_term, docs.dim
+        terms = torch.repeat_interleave(torch.arange(d), tm.ptr.diff())
+        a = assign[tm.rows.long()]
+        ok = (a >= 0) & (a < k)
+        lam = torch.zeros(d * k)
+        lam.index_add_(0, (terms * k + a.long())[ok], tm.vals[ok])
+        return lam.view(d, k)
+
+
+def test_update_step_with_by_term_identical(warm):
+    """An update whose λ adds the documents' term-major postings in order
+    (the kernel's walk) and the CPU's row-major update give identical
+    states, bit for bit; the CPU update builds no layout."""
+    docs, df, st = warm
+    rng = np.random.default_rng(4)
+    assign = np.asarray(st.assign).copy()
+    flip = rng.random(assign.shape[0]) < 0.1
+    assign[flip] = rng.integers(0, 16, flip.sum())
+    tdocs = docs_from_numpy(docs.ids, docs.vals, docs.nnz, docs.dim, df,
+                            device="cpu")
+    tst = state_from_numpy(st.index.means_t, st.index.moving,
+                           st.index.params.t_th, st.index.params.v_th,
+                           st.assign, st.rho_self, st.rho_self_prev,
+                           st.iteration, st.ub, device="cpu")
+    step = lambda bk: tup.update_step(
+        tdocs, _t(assign), tst.assign, tst, tst.index.params, k=16,
+        backend=bk)
+    b = step(KernelBackend())
+    assert "by_term" not in vars(tdocs)
+    a = step(_TermMajorBackend())
+    for name in ("means_t", "moving", "mf", "mf_h", "sketch_t", "n_moving"):
+        assert torch.equal(getattr(a.index, name), getattr(b.index, name))
+    for name in ("assign", "rho_self", "rho_self_prev", "ub"):
+        assert torch.equal(getattr(a, name), getattr(b, name))
+    assert a.iteration == b.iteration
+
+
 def test_init_state_from_explicit_seed_rows(small_corpus):
     docs, df, _, _ = small_corpus
     rows = np.asarray(jup.seed_rows(docs.n_docs, 16, seed=0))

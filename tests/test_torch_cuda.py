@@ -8,7 +8,9 @@ inside the fixture, never at import).  Run on an H100 with
 The shapes cover what ``chip_smoke.py`` does not: K not a multiple of the
 1024-column tile, more tuple slots than one shared-memory pass holds
 (P > 512), row counts that are not a multiple of a block's 8 documents,
-K = 1, dead slots, duplicate ids and assignments outside [0, K).  Kernel
+K = 1, dead slots, duplicate ids and assignments outside [0, K); for
+segment_update K above one shared-memory column tile and a term with
+12,000 postings; for sketch_sim tiles whose leading s are all zero.  Kernel
 and plain version add in the same order without fused multiply-adds, so
 they must agree bit for bit; the plain segment_update on the card uses
 atomics (``index_add_``), so λ is compared bitwise against the CPU plain
@@ -84,17 +86,42 @@ def test_esicp_filter_equal_plain(dev, shape):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# Beside SHAPES: K above one shared-memory column tile (most clusters
+# empty), and one term with 12,000 postings.
+SEGMENT_SHAPES = SHAPES + [(300, 50, 2000, 20_000), (12_000, 8, 64, 37)]
+
+
+@pytest.mark.parametrize("shape", SEGMENT_SHAPES)
 def test_segment_update_bitwise(dev, shape):
+    """Kernel vs the CPU plain version bit for bit, twice from the
+    documents' term-major layout, which is built once; assignments K and
+    -1, duplicate ids, dead slots."""
+    from repro_torch.sparse.matrix import SparseDocs
+
     b, _, d, k = shape
     ids, vals, _, assign = _inputs(*shape, seed=3)
-    g = [x.to(dev) for x in (assign, ids, vals)]
-    one = ops.segment_update(*g, k=k, d=d)
-    two = ops.segment_update(*g, k=k, d=d)
+    if b >= 10_000:                      # term 0 in every row
+        ids[:, 0] = 0
+        vals[:, 0] = 0.25
+    nnz = (vals != 0).sum(dim=1, dtype=torch.int32)
+    docs = SparseDocs(ids.to(dev), vals.to(dev), nnz.to(dev), d)
+    assert docs.to("cuda") is docs                   # a fit keeps the layout
+    g = assign.to(dev)
+    ops.reset_counts()
+    one = ops.segment_update(g, docs, k=k)
+    layout = docs.by_term
+    two = ops.segment_update(g, docs, k=k)
+    torch.cuda.synchronize()
+    assert docs.by_term is layout
+    assert ops.LAUNCHES["segment_update"] == 2
+    assert ops.PLAIN["segment_update"] == 0
     assert torch.equal(one, two)                      # no atomics
     assert torch.equal(one.cpu(), ref.segment_update(assign, ids, vals, k, d))
-    torch.testing.assert_close(one, ref.segment_update(*g, k, d), rtol=1e-4,
-                               atol=1e-4)
+    torch.testing.assert_close(
+        one, ref.segment_update(g, docs.ids, docs.vals, k, d), rtol=1e-4,
+        atol=1e-4)
+    if b >= 10_000:
+        assert int(layout.ptr[1]) >= 10_000
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -116,14 +143,20 @@ def test_cuda_operand_the_kernel_cannot_take_raises(dev):
         ops.sparse_sim(ids.to(dev), vals, means.to(dev))
 
 
-@pytest.mark.parametrize("b,s,k", [(33, 1, 1), (4097, 64, 130), (5, 37, 1),
-                                   (70, 64, 10_000)])
-def test_sketch_sim_equal_plain(dev, b, s, k):
-    """B not a multiple of the 32-row tile, K = 1, S = 1, K not a multiple
-    of the 128-column tile; binarised operands count exactly."""
-    gen = torch.Generator().manual_seed(b + s + k)
+@pytest.mark.parametrize("b,s,k,lead", [
+    (33, 1, 1, 0), (4097, 64, 130, 0), (5, 37, 1, 0), (70, 64, 10_000, 0),
+    (4097, 64, 130, 20), (256, 64, 300, 6), (300, 7, 259, 3),
+    (129, 1, 5, 1)])
+def test_sketch_sim_equal_plain(dev, b, s, k, lead):
+    """B not a multiple of the 128-row tile, K = 1, S in {1, 7, 37, 64}, K
+    not a multiple of the 128-column tile; the first row tile's x zero in
+    its ``lead`` leading s (the kernel's zero skip; lead 6 of 64: few
+    enough that they are added, as ±0; lead = S: nothing to add);
+    binarised operands count exactly."""
+    gen = torch.Generator().manual_seed(b + s + k + lead)
     x = torch.rand((b, s), generator=gen)
     x[torch.rand((b, s), generator=gen) < 0.4] = 0.0
+    x[:128, :lead] = 0.0
     m = torch.rand((s, k), generator=gen)
     ops.reset_counts()
     got = ops.sketch_sim(x.to(dev), m.to(dev))

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops, ref as jref  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.sparse.matrix import SparseDocs, term_major  # noqa: E402
 
 # (B, P, D, K): non-aligned, then block-aligned (b_blk 128, d_blk 256).
 SHAPES = [(20, 13, 300, 37), (128, 16, 512, 256)]
@@ -43,6 +44,23 @@ def _inputs(b, p, d, k, seed):
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _docs(ids, vals, d):
+    """SparseDocs of ``_inputs``' rows (live slots lead, values > 0)."""
+    return SparseDocs(_t(ids), _t(vals),
+                      _t((vals != 0).sum(axis=1).astype(np.int32)), d)
+
+
+def _walk(tm, assign, k: int, d: int):
+    """λ_t summed posting by posting over a term-major layout: each entry
+    adds its postings in layout order, as the CUDA kernel does."""
+    terms = torch.repeat_interleave(torch.arange(d), tm.ptr.diff())
+    a = assign[tm.rows.long()]
+    ok = (a >= 0) & (a < k)
+    lam = torch.zeros(d * k)
+    lam.index_add_(0, (terms * k + a.long())[ok], tm.vals[ok])
+    return lam.view(d, k)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -137,6 +155,82 @@ def test_segment_update_sums_in_row_order():
     np.testing.assert_array_equal(lam_t.numpy().T, want)
 
 
+# (B, P, D, K): the kernel shapes, and a vocabulary most of whose terms no
+# row uses.
+TERM_SHAPES = SHAPES + [(7, 5, 1000, 3)]
+
+
+@pytest.mark.parametrize("shape", TERM_SHAPES)
+def test_term_major_keeps_row_slot_order(shape):
+    """Each term's postings are its live tuples in (row, slot) order (a
+    duplicate id within a row twice, in slot order); dead slots, empty
+    rows and zero values inside a row are dropped; unused terms have empty
+    ranges; ``order`` ranks the terms by posting count, longest first."""
+    b, p, d, _ = shape
+    ids, vals, _, _ = _inputs(*shape, seed=10)
+    vals[2, 0] = 0.0                      # a zero value inside a live row
+    tm = term_major(_t(ids), _t(vals), d=d)
+    want = [[] for _ in range(d)]
+    for r in range(b):
+        for q in range(p):
+            if vals[r, q] != 0:
+                want[ids[r, q]].append((r, vals[r, q]))
+    ptr = tm.ptr.numpy()
+    assert tm.ptr.dtype == torch.int64 and ptr.shape == (d + 1,)
+    assert tm.rows.dtype == torch.int32 and tm.vals.dtype == torch.float32
+    assert ptr[0] == 0 and ptr[-1] == sum(map(len, want))
+    for t in range(d):
+        got = list(zip(tm.rows[ptr[t]:ptr[t + 1]].tolist(),
+                       tm.vals[ptr[t]:ptr[t + 1]].tolist()))
+        assert got == [(r, float(v)) for r, v in want[t]], t
+    assert any(len(w) == 0 for w in want)           # unused terms
+    assert any(len(w) > len(set(r for r, _ in w)) for w in want)  # dups
+    counts = np.diff(ptr)
+    order = tm.order.numpy()
+    assert tm.order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(d))
+    assert (np.diff(counts[order]) <= 0).all()
+
+
+@pytest.mark.parametrize("shape", TERM_SHAPES)
+def test_segment_update_by_term_equals_row_major(shape):
+    """The documents' term-major layout summed posting by posting (the
+    kernel's order) gives the CPU call's bits (the row-major plain
+    version) and repro's scatter's, assignments outside [0, K) included;
+    the CPU call never builds the layout."""
+    b, _, d, k = shape
+    ids, vals, _, assign = _inputs(*shape, seed=11)
+    assign[1::7] = -1
+    dropped = np.where(assign < 0, k, assign)      # jnp would wrap -1
+    want = np.asarray(jnp.zeros((k, d), jnp.float32)
+                      .at[dropped[:, None], ids].add(vals))
+    docs, ta = _docs(ids, vals, d), _t(assign)
+    ops.reset_counts()
+    got = ops.segment_update(ta, docs, k=k)
+    assert ops.PLAIN["segment_update"] == 1
+    assert ops.LAUNCHES["segment_update"] == 0
+    assert "by_term" not in vars(docs)
+    assert torch.equal(_walk(docs.by_term, ta, k, d), got)
+    np.testing.assert_array_equal(got.numpy().T, want)
+
+
+def test_segment_update_by_term_validated():
+    """The layout is the documents' own: built once, from their live
+    tuples only (values past a row's nnz are ignored)."""
+    ids, vals, _, assign = _inputs(8, 4, 30, 5, seed=12)
+    docs = _docs(ids, vals, 30)
+    stale = np.where(vals == 0, 7.0, vals).astype(np.float32)
+    dirty = SparseDocs(_t(ids), _t(stale), docs.nnz, 30)
+    assert dirty.by_term is dirty.by_term
+    assert dirty.to("cpu") is dirty                  # keeps its layout
+    for got, want in zip(dirty.by_term, docs.by_term):
+        assert torch.equal(got, want)
+    assert torch.equal(ops.segment_update(_t(assign), dirty, k=5),
+                       ops.segment_update(_t(assign), docs, k=5))
+    with pytest.raises(ValueError, match="one entry per row"):
+        ops.segment_update(_t(assign)[:3], docs, k=5)
+
+
 def test_ops_dispatch_cpu_to_plain_versions():
     """CPU operands go to the plain versions and count there; nothing
     launches."""
@@ -148,7 +242,7 @@ def test_ops_dispatch_cpu_to_plain_versions():
     ops.esicp_filter(r12, y, torch.zeros(20), torch.ones((20, 37),
                                                          dtype=torch.bool),
                      0.5)
-    ops.segment_update(ta, ti, tv, k=37, d=300)
+    ops.segment_update(ta, _docs(ids, vals, 300), k=37)
     ops.rho_gather(ta, ti, tv, tm)
     ops.esicp_gather(ti, tv, tm, 100, 0.5, v_ta=torch.full((20,), 0.3))
     ops.sparse_sim(ti, tv, tm, square=True)
@@ -168,4 +262,4 @@ def test_ops_validate_operands():
     with pytest.raises(TypeError, match="means_t must be"):
         ops.rho_gather(_t(assign), _t(ids), _t(vals), _t(means).double())
     with pytest.raises(ValueError, match="one entry per row"):
-        ops.segment_update(_t(assign)[:3], _t(ids), _t(vals), k=5, d=30)
+        ops.segment_update(_t(assign)[:3], _docs(ids, vals, 30), k=5)
