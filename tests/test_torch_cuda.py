@@ -5,16 +5,22 @@ inside the fixture, never at import).  Run on an H100 with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The shapes cover what ``chip_smoke.py`` does not: K not a multiple of the
-1024-column tile, more tuple slots than one shared-memory pass holds
-(P > 512), row counts that are not a multiple of a block's 8 documents,
-K = 1, dead slots, duplicate ids and assignments outside [0, K); for
-segment_update K above one shared-memory column tile and a term with
-12,000 postings; for sketch_sim tiles whose leading s are all zero.  Kernel
-and plain version add in the same order without fused multiply-adds, so
-they must agree bit for bit; the plain segment_update on the card uses
-atomics (``index_add_``), so λ is compared bitwise against the CPU plain
-version instead.  This file imports neither JAX nor ``repro``."""
+The shapes cover what ``chip_smoke.py`` does not.  For the gather's
+document tiles (28 documents x 256 columns for sims, 14 x 256 for the ES
+modes, staged 32 distinct rows at a time in a ring of three): B not a
+multiple of the tile, K not a multiple of the column slab and K = 1, K not
+a multiple of 4 (rows copied by the producer warp, not in bulk), more
+distinct rows in a tile than the ring holds (P 600), tiles whose documents
+share no id and tiles of identical documents, rows whose live ids do not
+ascend (the plan's slot-order walk), t_th at 0, inside and at D, every
+tile setting of ``scripts/gather_probe.py``; beside them dead slots, empty
+rows, duplicate ids and assignments outside [0, K).  For segment_update K above one
+shared-memory column tile and a term with 12,000 postings; for sketch_sim
+tiles whose leading s are all zero.  Kernel and plain version add in the
+same order without fused multiply-adds, so they must agree bit for bit;
+the plain segment_update on the card uses atomics (``index_add_``), so λ is
+compared bitwise against the CPU plain version instead.  This file imports
+neither JAX nor ``repro``."""
 import numpy as np
 import pytest
 
@@ -70,6 +76,87 @@ def test_gather_kernels_equal_plain(dev, shape):
     assert torch.equal(sims, got[2])
     assert ops.LAUNCHES["esicp_gather"] == ops.LAUNCHES["sparse_sim"] == 1
     assert ops.PLAIN["esicp_gather"] == ops.PLAIN["sparse_sim"] == 0
+
+
+def _tile_case(case):
+    """(ids, vals, means, D) of one gather tile edge (numpy, seeded)."""
+    rng = np.random.default_rng(len(case))
+    if case == "disjoint":                  # no id shared within a tile
+        b, p, d, k = 70, 40, 70 * 40, 300
+        ids = np.arange(b * p, dtype=np.int32).reshape(b, p)
+    elif case == "identical":               # every document the same
+        b, p, d, k = 130, 90, 500, 257
+        row = np.sort(rng.choice(d, p, replace=True)).astype(np.int32)
+        ids = np.tile(row, (b, 1))
+    else:                                   # "unordered": some rows shuffled
+        b, p, d, k = 37, 600, 2000, 1500
+        ids, vals, means, _ = (x.numpy() for x in _inputs(b, p, d, k, 11))
+        for i in range(0, b, 4):
+            n = int((vals[i] != 0).sum())
+            perm = rng.permutation(n)
+            ids[i, :n], vals[i, :n] = ids[i, perm], vals[i, perm]
+        return ids, vals, means, d
+    vals = (rng.random((b, p)) + 0.05).astype(np.float32)
+    vals[:, -3:] = 0.0                      # dead slots at the end
+    means = rng.random((d, k)).astype(np.float32)
+    means[rng.random((d, k)) < 0.5] = 0.0
+    return ids, vals, means, d
+
+
+@pytest.mark.parametrize("case", ["disjoint", "identical", "unordered"])
+@pytest.mark.parametrize("t_frac", [0.0, 0.5, 1.0])
+def test_gather_tile_edges_equal_plain(dev, case, t_frac):
+    """The tiled gather at its edges, sims, ES and TA modes with counts,
+    bit for bit; t_th at 0 (all tail), inside, and at D (no tail)."""
+    ids, vals, means, d = _tile_case(case)
+    g = [torch.from_numpy(x).to(dev) for x in (ids, vals, means)]
+    t_th = int(t_frac * d)
+    v_ta = torch.rand((ids.shape[0],), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev) * 0.8
+    ops.reset_counts()
+    for kw in ({}, {"v_ta": v_ta}):
+        got = ops.esicp_gather(*g, t_th, 0.4, with_counts=True, **kw)
+        want = ref.esicp_gather(*g, t_th, 0.4, with_counts=True, **kw)
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    sims, counts = ops.sparse_sim(*g, with_counts=True)
+    w_sims, w_counts = ref.sparse_sim(*g, with_counts=True)
+    assert torch.equal(sims, w_sims) and torch.equal(counts, w_counts)
+    assert torch.equal(ops.sparse_sim(*g)[0], w_sims)
+    assert sum(ops.PLAIN.values()) == 0
+
+
+@pytest.mark.parametrize("setting", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gather_tile_settings_equal_plain(dev, setting, shape):
+    """Every tile setting the probe times (4: setting 0 with the column
+    slabs fastest in the grid): sims without counts and esicp with counts,
+    bit for bit."""
+    from repro_torch.kernels import esicp_gather as kern
+
+    ids, vals, means, _ = _inputs(*shape, seed=12)
+    b, p, d, k = shape
+    g = [x.to(dev) for x in (ids, vals, means)]
+    lib = kern.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    t_th, v_th = int(0.7 * d), 0.4
+    out = [torch.empty((b, k), device=dev) for _ in range(3)]
+    cnt = torch.empty((b, k), dtype=torch.int32, device=dev)
+    for mode, counts in ((kern.SIMS, None), (kern.ESICP, cnt)):
+        scratch = kern.scratch(lib, g[0], d, mode, setting)
+        rc = lib.gather_setting_launch(
+            mode, setting, *(x.data_ptr() for x in g), b, p, d, k,
+            float(t_th), v_th, None, out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), None if counts is None else counts.data_ptr(),
+            scratch.data_ptr(), stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        if mode == kern.SIMS:
+            assert torch.equal(out[2], ref.sparse_sim(*g)[0])
+        else:
+            want = ref.esicp_gather(*g, t_th, v_th, with_counts=True)
+            for a, w in zip((*out, cnt), want):
+                assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -231,6 +231,111 @@ def test_segment_update_by_term_validated():
         ops.segment_update(_t(assign)[:3], docs, k=5)
 
 
+def _tile_plan(ids, vals, d: int, bt: int):
+    """The tiled gather's plan, plainly: per tile of ``bt`` rows its
+    distinct live ids ascending, each live slot's index into them (-1 on
+    dead slots) and whether each row's live ids ascend."""
+    live = (vals != 0) & (ids >= 0) & (ids < d)
+    index = torch.full(ids.shape, -1, dtype=torch.int64)
+    tiles = []
+    for t0 in range(0, ids.shape[0], bt):
+        sl = slice(t0, t0 + bt)
+        uid = torch.unique(ids[sl][live[sl]].long())       # sorted
+        index[sl] = torch.where(live[sl], torch.searchsorted(
+            uid, ids[sl].long()), -1)
+        tiles.append((t0, uid))
+    big = torch.iinfo(torch.int64).min
+    prev = torch.cummax(torch.where(live, ids.long(), big), dim=1).values
+    prev = torch.nn.functional.pad(prev, (1, 0), value=big)[:, :-1]
+    ordered = ~(live & (ids.long() < prev)).any(dim=1)
+    return tiles, index, ordered
+
+
+def _merged_gather(ids, vals, means, d: int, bt: int, t_th=None, thr=None):
+    """sims [, rho12, y] and counts summed in the tiled kernel's order: per
+    tile, the (distinct id, slot) pairs ascending; over the head
+    (float(id) < t_th) one accumulator, copied into rho12 where the tile's
+    ids cross t_th; rows whose live ids do not ascend slot by slot after."""
+    tiles, index, ordered = _tile_plan(ids, vals, d, bt)
+    b, p = ids.shape
+    k = means.shape[1]
+    acc, rho, y = (torch.zeros((b, k)) for _ in range(3))
+    cnt = torch.zeros((b, k), dtype=torch.int32)
+
+    def add(r, q, tail, walk=False):
+        """One tuple; ``walk``: slot order, rho12 has no copy to start
+        from, so the head adds to it too."""
+        v, m = vals[r, q], means[ids[r, q]]
+        c = v * m
+        acc[r] += c
+        if walk and t_th is not None and not tail:
+            rho[r] += c
+            cnt[r] += (m > 0).to(torch.int32)
+        elif tail:
+            exact = m >= thr[r]
+            rho[r] += torch.where(exact, c, 0.0)
+            y[r] += torch.where(exact, 0.0, v)
+            cnt[r] += (exact & (m > 0)).to(torch.int32)
+        else:
+            cnt[r] += (m > 0).to(torch.int32)
+
+    for t0, uid in tiles:
+        rows = range(t0, min(t0 + bt, b))
+        u_th = (len(uid) if t_th is None else
+                int((uid.to(torch.float32) < t_th).sum()))
+        pairs = sorted((int(index[r, q]), q, r) for r in rows for q in range(p)
+                       if index[r, q] >= 0 and ordered[r])
+        crossed = False
+        for u, q, r in pairs:
+            if u >= u_th and not crossed:
+                rho[t0:t0 + bt] = acc[t0:t0 + bt]
+                crossed = True
+            add(r, q, u >= u_th)
+        if not crossed:
+            rho[t0:t0 + bt] = acc[t0:t0 + bt]
+        for r in rows:
+            if not ordered[r]:
+                for q in range(p):
+                    if index[r, q] >= 0:
+                        add(r, q, t_th is not None
+                            and float(ids[r, q].to(torch.float32)) >= t_th,
+                            walk=True)
+    return acc, rho, y, cnt
+
+
+@pytest.mark.parametrize("bt", [1, 4, 64])
+@pytest.mark.parametrize("t_frac", [0.0, 0.5, 1.0])
+def test_tiled_gather_order_equals_plain(bt, t_frac):
+    """The tiled gather's order argument: a row's live ids ascend, so
+    visiting its tile's distinct ids in ascending order visits its slots in
+    slot order (duplicate ids included), and the head's single accumulator
+    copied at t_th is rho12 — bit for bit the plain versions, with dead
+    slots, empty rows, a zero value inside a row, t_th at 0, inside and at
+    D, per-row thresholds, and rows whose ids do not ascend (walked slot by
+    slot)."""
+    ids, vals, means, _ = _inputs(20, 13, 300, 37, seed=13)
+    vals[2, 0] = 0.0
+    ids, vals, means = _t(ids), _t(vals), _t(means)
+    rev = ids[5].clone()
+    ids[5, :int((vals[5] != 0).sum())] = rev[:int((vals[5] != 0).sum())].flip(0)
+    d = 300
+    t_th = int(t_frac * d)
+    _, _, ordered = _tile_plan(ids, vals, d, bt)
+    assert not bool(ordered[5]) and bool(ordered[:5].all())
+    sims, counts = ref.sparse_sim(ids, vals, means, with_counts=True)
+    got = _merged_gather(ids, vals, means, d, bt)
+    assert torch.equal(got[0], sims) and torch.equal(got[3], counts)
+    v_ta = torch.from_numpy(np.random.default_rng(14).random(20)
+                            .astype(np.float32)) * 0.8
+    for thr in (torch.full((20,), 0.5), v_ta):
+        want = ref.esicp_gather(ids, vals, means, t_th, 0.5,
+                                with_counts=True,
+                                v_ta=None if thr is not v_ta else v_ta)
+        got = _merged_gather(ids, vals, means, d, bt, t_th=t_th, thr=thr)
+        for g, w in zip((got[1], got[2], got[0], got[3]), want):
+            assert torch.equal(g, w)
+
+
 def test_ops_dispatch_cpu_to_plain_versions():
     """CPU operands go to the plain versions and count there; nothing
     launches."""
