@@ -51,16 +51,23 @@ each of which fails the run on any error:
              means, thresholds and ρ_self (v_ta = ρ_self / ||x||_1);
              sketch_sim also on the Region-3 tail sketch (doc tail at t_th
              against ``region3_sketch``), with its no-FMA floor printed
-             beside the bound.
+             beside the bound; the square variant also at t_th 0 (rows
+             whose ids do not ascend), with its tail slots, distinct tail
+             rows and means-row bytes moved printed.
 
 Then, with the clustering phases' memory freed, the LM serving path
 (gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``):
 
 9. lm kernels — flash_attention against its plain version at the
              model's shapes (BH 8, S 4096, hd 256, window 512 and -1,
-             unit-normal inputs) and at (3, 200, 136, 64) window 48 (rows
-             with no live key), max abs err ≤ 2e-5; times from CUDA events
-             beside the plain version and ``scaled_dot_product_attention``;
+             unit-normal inputs), at (3, 200, 136, 64) window 48 (rows
+             with no live key), max abs err ≤ 2e-5, and at (2, 1024, 256)
+             full causal with q, k scaled by 6 (scores ≈ 30) within 2e-5
+             of the plain version in float64; times from CUDA events
+             beside the plain version, ``scaled_dot_product_attention``
+             and two bounds (split-TF32 on the tensor cores, fp32 on the
+             CUDA cores); each instantiation's registers, spills (none
+             allowed), shared memory and blocks an SM;
 10. lm small — the gemma3 smoke config, parameters made on the CPU from
              ``--seed`` and carried to the card, float32 compute on both:
              prefill logits within 1e-4 and identical greedy tokens from
@@ -96,6 +103,10 @@ ROOT = Path(__file__).resolve().parent
 # Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+# TF32 products per fp32 operation in flash_attention (split-TF32:
+# lo·hi + hi·lo + hi·hi).
+TF32_PASSES = 3
 
 NYT_VOCAB = 495_126
 NYT_NT_MEAN = 225.76
@@ -170,9 +181,9 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(run(calls) for _ in range(reps))
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float, rate: float = FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -464,6 +475,24 @@ def log_moved_bytes(torch, ids, live, d: int, k: int, rows) -> None:
             f"{walk / 1e9:.3f} GB, each distinct row once {distinct / 1e9:.3f}"
             f" GB); at {r['ms']:.3f} ms that is {tiled / r['ms'] / 1e9:.3f} "
             f"TB/s; bound {r['bound'][0]:.3f} ms by {r['bound'][1]}")
+
+
+def log_square_bytes(torch, ids, tail, d: int, k: int, n_tail: int,
+                     tail_rows: int, ms: float) -> None:
+    """The square variant's counts and the means-row bytes it moves: Σ over
+    document tiles of their distinct tail rows, against one K-row per tail
+    slot (a walk tuple by tuple) and one per distinct tail row."""
+    from repro_torch.kernels.esicp_gather import SQUARE, library
+
+    row = k * 4
+    bt = library().gather_tile_docs(SQUARE, 0)
+    tiled = tile_distinct(torch, ids, tail, d, bt)
+    log(f"  square variant: {n_tail} tail slots over {tail_rows} distinct "
+        f"rows; Σ over tiles of {bt} documents of their distinct tail rows "
+        f"{tiled}; means rows moved to the SMs {tiled * row / 1e9:.3f} GB "
+        f"(a tuple-by-tuple walk {n_tail * row / 1e9:.3f} GB, each distinct "
+        f"row once {tail_rows * row / 1e9:.3f} GB); at {ms:.3f} ms that is "
+        f"{tiled * row / ms / 1e9:.3f} TB/s")
 
 
 def _same_fits(torch, a, b, what: str) -> None:
@@ -820,8 +849,22 @@ def sketch_kernel_phase(torch, docs, model):
         library_ms=None,
         bound=bound_ms(tail_rows * k * 4 + BATCH * p * 8 + BATCH * k * 4,
                        3 * n_tail * k))
-    log(f"  square variant: {n_tail} tail slots over {tail_rows} rows")
-    del got, want
+    log_square_bytes(torch, b_ids, ones != 0, d, k, n_tail, tail_rows,
+                     rows["sparse_sim_square"]["ms"])
+    # t_th 0: the dead id-0 slots at the end of a row are live too, so the
+    # rows' ids do not ascend: the tile takes each row's head and adds the
+    # id-0 slots after it slot by slot.
+    ones0 = (b_ids >= 0).to(torch.float32)
+    got0, _ = ops.sparse_sim(b_ids, ones0, means_t, square=True)
+    check_equal(torch, "sparse_sim_square t_th 0", got0,
+                ref.sparse_sim(b_ids, ones0, means_t, square=True)[0])
+    unordered = int((b_ids[:, 1:] < b_ids[:, :-1]).any(dim=1).sum())
+    ms0 = time_ms(torch, lambda: ops.sparse_sim(b_ids, ones0, means_t,
+                                                square=True), reps=3)
+    log(f"  square variant at t_th 0 bitwise equal to plain: {unordered} of "
+        f"{BATCH} rows do not ascend; {ms0:.3f} ms")
+    rows["sparse_sim_square"]["extra"] = dict(t_th0_ms=ms0)
+    del got, want, got0
     for name, r in rows.items():
         log(f"  {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound"
             f" {r['bound'][0]:.4f} ms by {r['bound'][1]}, library "
@@ -830,13 +873,35 @@ def sketch_kernel_phase(torch, docs, model):
     return rows
 
 
-def attention_bound(bh: int, sq: int, hd: int, window: int):
-    """(bound, live pairs) of one banded-causal attention call: 4·hd fp32
+def attention_bound(bh: int, sq: int, hd: int, window: int,
+                    passes: float = 1):
+    """(bound, live pairs) of one banded-causal attention call: 4·hd
     operations per live (query, key) pair against q, k, v read once and
-    the output written once."""
+    the output written once.  passes 1: fp32 on the CUDA cores; more:
+    that many TF32 products per operation on the tensor cores."""
     pairs = sum(min(i + 1, window) if window >= 0 else i + 1
                 for i in range(sq)) * bh
-    return bound_ms(4 * bh * sq * hd * 4, 4 * hd * pairs), pairs
+    rate = FP32_FLOPS if passes == 1 else TF32_FLOPS
+    return bound_ms(4 * bh * sq * hd * 4, passes * 4 * hd * pairs,
+                    rate), pairs
+
+
+def log_flash_resources() -> None:
+    """Registers and spills (ptxas) and shared memory and blocks an SM of
+    every flash_attention instantiation; fails on a spill."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kern
+
+    for r in _build.ptxas_report("flash_attention"):
+        hd = int(re.search(r"ILi(\d+)E", r["kernel"]).group(1))
+        smem, blocks = kern.resources(hd)
+        log(f"  flash_kernel<{hd}>: {r['registers']} registers, spill "
+            f"stores {r['spill_stores']} B, loads {r['spill_loads']} B; "
+            f"{smem} B shared memory, {blocks} block(s) an SM")
+        require(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                f"flash_kernel<{hd}> spills")
 
 
 def lm_kernel_phase(torch, seed: int):
@@ -847,6 +912,7 @@ def lm_kernel_phase(torch, seed: int):
     from repro_torch.kernels import ops, ref
 
     t0 = phase("lm kernels: flash_attention")
+    log_flash_resources()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     tol = 2e-5
@@ -870,21 +936,41 @@ def lm_kernel_phase(torch, seed: int):
             lib = lambda: F.scaled_dot_product_attention(q, k, v,
                                                          attn_mask=band)
         lib_err = max_err(torch, lib(), got)
-        bound, pairs = attention_bound(bh, s, hd, window)
+        bound, pairs = attention_bound(bh, s, hd, window, TF32_PASSES)
+        fp32_bound, _ = attention_bound(bh, s, hd, window)
         by_window[window] = dict(
             max_abs_err=err,
             ms=time_ms(torch, lambda: ops.flash_attention(q, k, v,
                                                           window=window)),
             plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v,
                                                                 window), reps=3),
-            library_ms=time_ms(torch, lib), bound=bound)
+            library_ms=time_ms(torch, lib), bound=bound,
+            fp32_bound_ms=fp32_bound[0])
         r = by_window[window]
         log(f"  BH {bh} S {s} hd {hd} window {window}: {pairs} live pairs; "
-            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound "
-            f"{bound[0]:.4f} ms by {bound[1]}, sdpa {r['library_ms']:.3f} ms)"
-            f" max abs err {err:.3g} (tolerance {tol}); sdpa vs kernel "
+            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, sdpa "
+            f"{r['library_ms']:.3f} ms); bound {bound[0]:.4f} ms by "
+            f"{bound[1]} in {TF32_PASSES} TF32 passes on the tensor cores "
+            f"({bound[0] / r['ms']:.1%} of it), {fp32_bound[0]:.4f} ms in "
+            f"fp32 on the CUDA cores ({fp32_bound[0] / r['ms']:.1%}); max "
+            f"abs err {err:.3g} (tolerance {tol}); sdpa vs kernel "
             f"{lib_err:.3g}")
     del q, k, v, got
+    # Scores of magnitude ≈ 30 (q, k scaled by 6): the online rescaling
+    # under the split products, against the plain version in float64 (in
+    # float32 it is itself 9e-5 off there; scripts/flash_probe.py).
+    q6, k6, v6 = (torch.randn((2, 1024, hd), generator=gen, device=dev)
+                  for _ in range(3))
+    q6, k6 = q6 * 6, k6 * 6
+    got = ops.flash_attention(q6, k6, v6, window=-1)
+    want = ref.flash_attention(q6.double(), k6.double(), v6.double(), -1)
+    err6 = check_close(torch, "flash_attention (2, 1024, 256) q, k x6",
+                       got.double(), want, tol)
+    err32 = max_err(torch, ref.flash_attention(q6, k6, v6, -1), want)
+    log(f"  (2, 1024, 256) full causal, q, k scaled by 6 (scores ≈ 30): max "
+        f"abs err against the float64 plain version {err6:.3g} (tolerance "
+        f"{tol}; the float32 plain version {err32:.3g})")
+    del q6, k6, v6, got, want
 
     # Sq != Sk, neither a multiple of the tile; rows >= 136 + 48 - 1 see
     # no key and must give exactly 0.
@@ -898,10 +984,13 @@ def lm_kernel_phase(torch, seed: int):
     log(f"  (3, 200, 136, 64) window 48: max abs err {err:.3g} (tolerance "
         f"{tol}); rows 183-199 exactly 0")
     row = dict(by_window[-1])
-    row["max_abs_err"] = max(err, *(r["max_abs_err"] for r in by_window.values()))
+    row["max_abs_err"] = max(err, err6,
+                             *(r["max_abs_err"] for r in by_window.values()))
+    row["extra"] = dict(fp32_bound_ms=row.pop("fp32_bound_ms"))
     row["by_window"] = {str(w): dict(ms=r["ms"], plain_ms=r["plain_ms"],
                                      library_ms=r["library_ms"],
                                      bound_ms=r["bound"][0],
+                                     fp32_bound_ms=r["fp32_bound_ms"],
                                      max_abs_err=r["max_abs_err"])
                         for w, r in by_window.items()}
     log(f"lm kernel checks passed in {time.perf_counter() - t0:.1f} s")
@@ -1060,6 +1149,7 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
 
     log_breakdown("prefill under the profiler",
                   *device_breakdown(torch, lambda: prefill(params, tokens)))
+    run_launches = ops.LAUNCHES["flash_attention"]
 
     # Parity: the same prefill with the plain attention, and the bf16
     # path's own rounding error (float32 compute, kernel path).
@@ -1069,6 +1159,7 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
         require(ops.LAUNCHES["flash_attention"] == 0,
                 "the parity prefill launched the kernel")
     ref32 = make_prefill_fn(cfg, compute_dtype=torch.float32)(params, tokens)
+    run_launches += ops.LAUNCHES["flash_attention"]
     a, b = logits.float(), plain_logits.float()
     diff = float((a - b).abs().max())
     noise = float((a - ref32).abs().max())
@@ -1113,8 +1204,10 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
     log(f"  peak device memory over the phase: {peak / 2**30:.2f} GiB")
     del params, loop
     torch.cuda.empty_cache()
+    log(f"  flash_attention launches over the phase's {run_launches // 26}"
+        f" kernel prefills: {run_launches}")
     log(f"lm main path done in {time.perf_counter() - t0:.1f} s")
-    return launches["flash_attention"]
+    return launches["flash_attention"], run_launches
 
 
 def main() -> int:
@@ -1185,8 +1278,9 @@ def main() -> int:
 
     rows["flash_attention"] = lm_kernel_phase(torch, args.seed)
     lm_small_phase(torch, args.seed)
-    launches["flash_attention"] = lm_main_phase(torch, args.seed,
-                                                args.lm_batch, args.lm_seq)
+    launches["flash_attention"], run_launches = lm_main_phase(
+        torch, args.seed, args.lm_batch, args.lm_seq)
+    rows["flash_attention"]["extra"]["launches_in_run"] = run_launches
     paths["flash_attention"] = ["gemma3-1b prefill"]
 
     kernels = []

@@ -12,11 +12,14 @@ normalised cluster sums of a seeded random assignment as means, EstParams'
 thresholds for them) it times, each with ``chip_smoke.time_ms`` and each
 held bit for bit against its plain version on the card:
 
-- this checkout's ``sparse_sim`` (no counts, as classify calls it) and
-  ``esicp_gather`` (with counts, as the fits call it);
-- the same two from every ``--other`` source (a ``csrc/gather.cu`` of
+- this checkout's ``sparse_sim`` (no counts, as classify calls it),
+  ``esicp_gather`` (with counts, as the fits call it) and the ``square``
+  variant (on 1 at the tail slots, id >= t_th, as CS-ICP calls it, and
+  at t_th 0, where the dead id-0 slots are live too and each row's id-0
+  slots after its head are walked slot by slot);
+- the same three from every ``--other`` source (a ``csrc/gather.cu`` of
   another revision, e.g. unpacked with ``git archive``; its entry points
-  may lack the scratch argument);
+  may lack the scratch argument, and its square variant may take none);
 - ``torch.sparse.mm`` on the batch as CSR, the library yardstick;
 - the hot-rows variant: the same values with every id folded onto the
   1,024 rows id mod 1,024 (each row's live slots re-sorted by id), rows
@@ -24,7 +27,7 @@ held bit for bit against its plain version on the card:
   L2/issue-limited time, and the gap to the real batch the cost of rows
   that miss L2;
 - this checkout's kernel at its other tile settings (documents per tile
-  Bt, columns per slab Kt, consumer warps), and at its
+  Bt, columns per slab Kt, consumer warps; square has none), and at its
   own with the grid's column slabs fastest (setting 4) in place of its
   document tiles, to show what scheduling slabs slowest does for L2.
 
@@ -90,9 +93,10 @@ def hot_rows(torch, ids, vals):
 
 
 def other_gather(torch, lib, path: Path):
-    """(sims(ids, vals, means_t), esicp(ids, vals, means_t, t_th, v_th))
-    from another revision's library, with or without the scratch argument."""
-    from repro_torch.kernels.esicp_gather import ESICP, SIMS
+    """(sims(ids, vals, means_t), esicp(ids, vals, means_t, t_th, v_th),
+    square(ids, vals, means_t)) from another revision's library, with or
+    without the scratch argument."""
+    from repro_torch.kernels.esicp_gather import ESICP, SIMS, SQUARE
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     scratch_fn = getattr(lib, "gather_scratch_bytes", None)
@@ -111,18 +115,21 @@ def other_gather(torch, lib, path: Path):
         if scratch_fn is None:
             return []
         n = scratch_fn(ids.shape[0], ids.shape[1], d, mode, 0)
+        if n < 0:                          # a mode that takes no plan
+            return [None]
         return [torch.empty((n,), dtype=torch.uint8,
                             device=ids.device).data_ptr()]
 
-    def sims(ids, vals, means_t):
+    def sims(ids, vals, means_t, square=0):
         b, pw = ids.shape
         d, k = means_t.shape
         out = torch.empty((b, k), device=ids.device)
         stream = torch.cuda.current_stream(ids.device).cuda_stream
         rc = lib.sparse_sim_launch(ids.data_ptr(), vals.data_ptr(),
-                                   means_t.data_ptr(), b, pw, d, k, 0,
+                                   means_t.data_ptr(), b, pw, d, k, square,
                                    out.data_ptr(), None,
-                                   *scratch(ids, d, SIMS), stream)
+                                   *scratch(ids, d, SQUARE if square
+                                            else SIMS), stream)
         if rc:
             raise RuntimeError(f"{path}: sparse_sim launch error {rc}")
         return out
@@ -141,12 +148,13 @@ def other_gather(torch, lib, path: Path):
             raise RuntimeError(f"{path}: esicp_gather launch error {rc}")
         return (*out, cnt)
 
-    return sims, esicp
+    return sims, esicp, lambda ids, vals, m: sims(ids, vals, m, square=1)
 
 
 def setting_gather(torch, lib, setting: int):
-    """This checkout's kernel at tile setting ``setting``."""
-    from repro_torch.kernels.esicp_gather import ESICP, SIMS, scratch
+    """This checkout's kernel at tile setting ``setting``: (sims, esicp,
+    square)."""
+    from repro_torch.kernels.esicp_gather import ESICP, SIMS, SQUARE, scratch
 
     def run(mode, ids, vals, means_t, t_th, v_th):
         b, pw = ids.shape
@@ -163,10 +171,11 @@ def setting_gather(torch, lib, setting: int):
             torch.cuda.current_stream(ids.device).cuda_stream)
         if rc:
             raise RuntimeError(f"setting {setting}: launch error {rc}")
-        return out[2] if mode == SIMS else (*out, cnt)
+        return (*out, cnt) if mode == ESICP else out[2]
 
     return (lambda ids, vals, m: run(SIMS, ids, vals, m, 0.0, 0.0),
-            lambda ids, vals, m, t, v: run(ESICP, ids, vals, m, t, v))
+            lambda ids, vals, m, t, v: run(ESICP, ids, vals, m, t, v),
+            lambda ids, vals, m: run(SQUARE, ids, vals, m, 0.0, 0.0))
 
 
 def main() -> int:
@@ -192,8 +201,9 @@ def main() -> int:
                                                   args.seed)
     occupancy = {f"{name} setting {setting}": lib.gather_blocks_per_sm(
         mode, setting, counts) for name, mode, counts in (
-            ("sparse_sim", kern.SIMS, 0), ("esicp_gather", kern.ESICP, 1))
-        for setting in range(4)}
+            ("sparse_sim", kern.SIMS, 0), ("square", kern.SQUARE, 0),
+            ("esicp_gather", kern.ESICP, 1))
+        for setting in range(4) if lib.gather_tile_docs(mode, setting) > 0}
     occupancy.update({"sparse_sim counts setting 0": lib.gather_blocks_per_sm(
         kern.SIMS, 0, 1), "ta setting 0": lib.gather_blocks_per_sm(
             kern.TA, 0, 1)})
@@ -204,10 +214,13 @@ def main() -> int:
     row = k * 4
     result = {"card": card, "shape": [BATCH, ids.shape[1], d, k],
               "t_th": t_th, "v_th": v_th, "blocks_per_sm": occupancy}
-    batches = {"real": (ids, vals), "hot": hot_rows(torch, ids, vals)}
+    tail = (ids >= t_th).to(torch.float32)
+    batches = {"real": (ids, vals), "hot": hot_rows(torch, ids, vals),
+               "tail": (ids, tail), "hot tail": hot_rows(torch, ids, tail),
+               "tail at t_th 0": (ids, (ids >= 0).to(torch.float32))}
     tiles = {BATCH, *(lib.gather_tile_docs(m, setting)
-                      for m in (kern.SIMS, kern.ESICP)
-                      for setting in range(4))}
+                      for m in (kern.SIMS, kern.SQUARE, kern.ESICP)
+                      for setting in range(4))} - {-1}
     for name, (bi, bv) in batches.items():
         live = bv != 0
         moved = {bt: tile_distinct(torch, bi, live, d, bt) * row
@@ -223,9 +236,12 @@ def main() -> int:
 
     want = {}
     for name, (bi, bv) in batches.items():
-        want[name] = (ref.sparse_sim(bi, bv, means_t)[0],
-                      ref.esicp_gather(bi, bv, means_t, t_th, v_th,
-                                       with_counts=True))
+        if "tail" in name:
+            want[name] = ref.sparse_sim(bi, bv, means_t, square=True)[0]
+        else:
+            want[name] = (ref.sparse_sim(bi, bv, means_t)[0],
+                          ref.esicp_gather(bi, bv, means_t, t_th, v_th,
+                                           with_counts=True))
 
     def measure(label, fn, batch, exact, moved_bytes):
         bi, bv = batches[batch]
@@ -249,47 +265,58 @@ def main() -> int:
               flush=True)
         result.setdefault(label, {})[batch] = r
 
+    modes = (kern.SIMS, kern.ESICP, kern.SQUARE)
+
     def kernels():
-        bt0 = {m: lib.gather_tile_docs(m, 0) for m in (kern.SIMS, kern.ESICP)}
-        yield ("sparse_sim (this tree)", bt0[kern.SIMS],
-               lambda i, v: ops.sparse_sim(i, v, means_t)[0],
-               lambda i, v: ops.esicp_gather(i, v, means_t, t_th, v_th,
-                                             with_counts=True),
-               bt0[kern.ESICP])
+        """(label, {mode: documents per tile or None for a walk},
+        {mode: fn(ids, vals)})."""
+        yield ("(this tree)", {m: lib.gather_tile_docs(m, 0) for m in modes},
+               {kern.SIMS: lambda i, v: ops.sparse_sim(i, v, means_t)[0],
+                kern.ESICP: lambda i, v: ops.esicp_gather(
+                    i, v, means_t, t_th, v_th, with_counts=True),
+                kern.SQUARE: lambda i, v: ops.sparse_sim(
+                    i, v, means_t, square=True)[0]})
         for src in args.other:
-            sims, esicp = other_gather(torch, libs[src], src)
+            sims, esicp, square = other_gather(torch, libs[src], src)
             tiled = getattr(libs[src], "gather_tile_docs", None)
-            bt = None
+            bt = {m: None for m in modes}
             if tiled is not None:
                 tiled.restype = ctypes.c_int
                 tiled.argtypes = [ctypes.c_int, ctypes.c_int]
-                bt = tiled(kern.SIMS, 0)
-            yield (f"({src})", bt, lambda i, v, f=sims: f(i, v, means_t),
-                   lambda i, v, f=esicp: f(i, v, means_t, t_th, v_th),
-                   None if tiled is None else tiled(kern.ESICP, 0))
+                bt = {m: (tiled(m, 0) if tiled(m, 0) > 0 else None)
+                      for m in modes}
+            yield (f"({src})", bt,
+                   {kern.SIMS: lambda i, v, f=sims: f(i, v, means_t),
+                    kern.ESICP: lambda i, v, f=esicp: f(i, v, means_t, t_th,
+                                                       v_th),
+                    kern.SQUARE: lambda i, v, f=square: f(i, v, means_t)})
         for setting in (1, 2, 3, 4):
-            bt = {m: lib.gather_tile_docs(m, setting)
-                  for m in (kern.SIMS, kern.ESICP)}
-            sims, esicp = setting_gather(torch, lib, setting)
-            yield (f"(setting {setting})", bt[kern.SIMS],
-                   lambda i, v, f=sims: f(i, v, means_t),
-                   lambda i, v, f=esicp: f(i, v, means_t, t_th, v_th),
-                   bt[kern.ESICP])
+            sims, esicp, square = setting_gather(torch, lib, setting)
+            bt = {m: lib.gather_tile_docs(m, setting) for m in modes}
+            fns = {kern.SIMS: lambda i, v, f=sims: f(i, v, means_t),
+                   kern.ESICP: lambda i, v, f=esicp: f(i, v, means_t, t_th,
+                                                      v_th),
+                   kern.SQUARE: lambda i, v, f=square: f(i, v, means_t)}
+            yield (f"(setting {setting})", bt,
+                   {m: f for m, f in fns.items() if bt[m] > 0})
 
-    for label, bt_s, sims, esicp, bt_e in kernels():
-        tag = label.replace("sparse_sim ", "")
+    names = {kern.SIMS: "sparse_sim", kern.ESICP: "esicp_gather",
+             kern.SQUARE: "square"}
+    for label, bts, fns in kernels():
         for batch in batches:
             info = result[batch]
-            moved_s = (info["walk_bytes"] if bt_s is None
-                       else info["tile_bytes"].get(str(bt_s)))
-            moved_e = (info["walk_bytes"] if bt_e is None
-                       else info["tile_bytes"].get(str(bt_e)))
-            measure(f"sparse_sim {tag}", sims, batch, want[batch][0],
-                    moved_s)
-            measure(f"esicp_gather {tag}", esicp, batch, want[batch][1],
-                    moved_e)
+            for mode, fn in fns.items():
+                if (mode == kern.SQUARE) != ("tail" in batch):
+                    continue
+                moved = (info["walk_bytes"] if bts[mode] is None
+                         else info["tile_bytes"].get(str(bts[mode])))
+                exact = (want[batch] if mode == kern.SQUARE else
+                         want[batch][0 if mode == kern.SIMS else 1])
+                measure(f"{names[mode]} {label}", fn, batch, exact, moved)
 
     for batch, (bi, bv) in batches.items():
+        if "tail" in batch:
+            continue
         live = bv != 0
         with warnings.catch_warnings():   # CSR support is marked beta
             warnings.simplefilter("ignore", UserWarning)

@@ -1,4 +1,5 @@
-// Banded-causal flash attention (CUDA, sm_90a; kernels/flash_attention.py).
+// Banded-causal flash attention on the tensor cores (CUDA, sm_90a;
+// kernels/flash_attention.py).
 //
 //   q (BH, Sq, hd), k/v (BH, Sk, hd) float32 -> out (BH, Sq, hd) float32
 //
@@ -7,198 +8,448 @@
 // -1e30 and add exactly 0; out = acc / max(l, 1e-30), so a row with no live
 // key gives 0.  hd is a template parameter: 16, 32, 64, 128 or 256.
 //
-// One block of 8 warps owns kBQ = 32 query rows of one (batch, head) row
-// bh; warp w owns rows 4w..4w+3.  The block stages its Q tile once, then
-// walks the key tiles of kBK = 32 keys that hold a live key for any of its
-// rows: tiles wholly above the diagonal, wholly outside the window or at or
-// past sk_real are never read (the Pallas kernel streams them all and
-// masks).  Per tile:
-//   * K and V are staged in shared memory (K rows padded by 4 floats, so
-//     the float4 reads of 8 lanes' rows fall in distinct banks);
-//   * scores: lane c owns key k0 + c and computes its dot with the warp's
-//     4 rows (Q read as float4 broadcasts), fp32 FMAs on the CUDA cores;
-//   * online softmax per row: max and sum by a warp butterfly (every lane
-//     ends with the same value), expf (not __expf), no fast math;
-//   * P V: each lane owns output columns lane + 32j; p is passed from the
-//     lane that owns the key by shuffle, V read from shared memory.
+// Both products, S = Q·Kᵀ and O += P·V, run as split-TF32 mma.sync
+// (m16n8k8, fp32 accumulation).  Each operand x is split on load into
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi); each product is lo·hi +
+// hi·lo + hi·hi, small terms first, which drops only lo·lo (about 2^-22 of
+// |x·y|), where one TF32 pass keeps 11 significant bits and would miss the
+// 2e-5 tolerance.  The tensor cores add into their fp32 accumulator with
+// truncation, not rounding, so no chain runs long: a tile's P·V runs from
+// zero and joins O by one fmaf (alpha·O + P·V), so O's tiles add
+// round-to-nearest, and the scores' hi·hi terms run per 16-dim chunk from
+// zero, joined by compensated addition.  With q, k scaled by 6 (scores
+// ≈ 30), plain adds there left up to 3e-5 of error against float64 and
+// this leaves up to 2e-5, where the float32 plain version is at 4e-5 to
+// 1.2e-4; a fourth product (lo·lo) did not lower that worst case
+// (scripts/flash_probe.py).
+//
+// One block owns kBQ = 64 query rows of one (batch, head) row bh, in four
+// row groups of 16, the mma's M.  A row group is one warp, or at hd 256 two,
+// each with half the head dims: each computes its share of the scores, the
+// two add them through shared memory, and each keeps half of O (64
+// accumulator registers a thread, not 128, so nothing spills and 8 warps
+// share an SM, not 4).  Q is staged once.  Key tiles of kBK = 32 keys come
+// in by cp.async into two stages, the next tile's copies in flight during
+// this tile's arithmetic: at hd 256 only two stages fit, so freeing a
+// stage takes a block barrier either way (one per tile), and cp.async
+// zero-fills the rows past Sk.  Tiles wholly above the diagonal, wholly
+// outside the window or at or past sk_real are never read by the block; a
+// row group skips the arithmetic of a tile none of its 16 rows sees, and
+// masks none in a tile all of its rows see whole.
+// Fragment layouts (g = lane / 4, t = lane % 4):
+//   * the reduction index of a fragment may be permuted as long as both
+//     operands share the permutation, so S reads Q and K rows as float4s
+//     (dims 4t..4t+3 of a 16-dim chunk serve two k-steps), row stride
+//     hd + 16 floats: no bank conflict;
+//   * P's A fragment is S's C fragment as it lies (keys 2t, 2t+1 of each
+//     8-key step), so V is read at rows 2t, 2t+1; output columns are
+//     permuted within groups of 32 so one float4 of V feeds four n-tiles;
+//     V's row stride is hd + 4 floats: no bank conflict;
+//   * softmax per row: max over the quad's 4 lanes (shfl_xor 1, 2), expf
+//     (not __expf), no fast math; the running sum stays per lane until the
+//     end.
 // Grid: one block per (q tile, bh), the q tiles of most keys first, so the
 // long causal rows start early.  Nothing is padded in device memory: rows
 // past Sq or Sk are zero-filled in shared memory and never stored.
 //
-// Shared memory: 4 (32·hd + 32·(hd+4) + 32·hd) bytes, 98,816 at hd 256,
-// above the 48 KB default: the launch opts in with cudaFuncSetAttribute.
+// Shared memory: 4·(64·sQ + 2·32·(sQ + sV)) bytes, sQ = hd + 16 (hd 16:
+// 16), sV = hd + 4, and at hd 256 16 KB for the score exchange: 222,208
+// bytes, one block an SM.
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;             // query rows per warp
-constexpr int kBQ = kWarps * kRows;  // query rows per block
-constexpr int kBK = 32;              // keys per tile: one per lane
+constexpr int kGroups = 4;          // row groups of 16 per block
+constexpr int kBQ = kGroups * 16;   // query rows per block
+constexpr int kBK = 32;             // keys per tile
+constexpr int kNT = kBK / 8;        // score n-tiles (and P·V k-steps) per tile
 constexpr float kMasked = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Warps per row group: at hd 256 two, each with half the head dims (its
+// share of the score, exchanged through shared memory, and half of O), so
+// the accumulator is 64 registers a thread and no register spills.
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * HD + kBK * (HD + 4) + kBK * HD);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
+constexpr int kSplit = HD >= 256 ? 2 : 1;
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kThreads = 32 * kGroups * kSplit<HD>;
+
+template <int HD>
+struct Layout {
+  static constexpr int kSQ = HD % 32 == 0 ? HD + 16 : HD;  // Q and K rows
+  static constexpr int kSV = HD + 4;                       // V rows
+  static constexpr int kX =  // the score exchange
+      (kSplit<HD> > 1) ? kGroups * kSplit<HD> * kNT * 128 : 0;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kBQ * kSQ + 2 * kBK * (kSQ + kSV) + kX);
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !full.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero:
+// cvt.rna.tf32.f32's result, in two integer operations (the conversion
+// instruction runs at a fraction of their rate; scripts/flash_probe.py).
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32.
+__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a·b, one m16n8k8 TF32 product with fp32 accumulation.
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float (&x)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
+}
+
+// Barrier `id` (1..15) for `n` threads, warps of a row group here.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads<HD>, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int BH,
              int Sq, int Sk, int sk_real, int window, float scale) {
   static_assert(HD % 16 == 0 && HD <= 256, "hd must be a multiple of 16");
-  constexpr int kV4 = HD / 4;             // float4 per row
-  constexpr int kSK = HD + 4;             // padded K row
-  constexpr int kCols = (HD + 31) / 32;   // output columns per lane
-  extern __shared__ float4 smem4[];
-  float* s_q = reinterpret_cast<float*>(smem4);
-  float* s_k = s_q + kBQ * HD;
-  float* s_v = s_k + kBK * kSK;
+  constexpr int kSQ = Layout<HD>::kSQ, kSV = Layout<HD>::kSV;
+  constexpr int kT = kThreads<HD>;
+  constexpr int kW = HD / kSplit<HD>;     // head dims of a warp
+  constexpr int kC4 = HD / 4;             // 16-byte chunks per row
+  constexpr int kOT = kW / 8;             // output n-tiles of a warp
+  constexpr int kVN = kW >= 32 ? 4 : 2;   // output n-tiles per V load
+  extern __shared__ __align__(16) float smem[];
+  float* s_q = smem;
+  float* s_k = s_q + kBQ * kSQ;       // 2 stages of kBK x kSQ
+  float* s_v = s_k + 2 * kBK * kSQ;   // 2 stages of kBK x kSV
+  float* s_x = s_v + 2 * kBK * kSV;   // per warp: its share of the scores
 
   const int n_qt = (Sq + kBQ - 1) / kBQ;
   const int bh = blockIdx.x % BH;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
   const int q0 = qt * kBQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = warp * kRows;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp % kGroups;          // row group
+  const int d0 = (warp / kGroups) * kW;   // the warp's first head dim
 
   const float* qb = q + static_cast<size_t>(bh) * Sq * HD;
   const float* kb = k + static_cast<size_t>(bh) * Sk * HD;
   const float* vb = v + static_cast<size_t>(bh) * Sk * HD;
 
-  for (int i = threadIdx.x; i < kBQ * kV4; i += kThreads) {
-    const int r = i / kV4, c = i - r * kV4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq)
-      x = reinterpret_cast<const float4*>(qb + static_cast<size_t>(q0 + r) * HD)[c];
-    reinterpret_cast<float4*>(s_q + r * HD)[c] = x;
-  }
-
-  // Keys any row of the tile can see: [k_lo, k_hi].
+  // Keys any row of the block can see: [k_lo, k_hi].
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int k_hi = min(q_last, sk_real - 1);
   const int k_lo = window >= 0 ? max(0, q0 - window + 1) : 0;
+  const int tile0 = k_lo / kBK;
+  const int n_tiles = k_hi >= k_lo ? k_hi / kBK - tile0 + 1 : 0;
 
-  float m[kRows], l[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+  for (int i = tid; i < kBQ * kC4; i += kT) {
+    const int r = i / kC4, c = i - r * kC4;
+    const bool in = q0 + r < Sq;
+    cp_async16(s_q + r * kSQ + 4 * c,
+               in ? qb + static_cast<size_t>(q0 + r) * HD + 4 * c : qb, in);
   }
+  auto stage = [&](int tile, int s) {
+    const int k0 = tile * kBK;
+    float* dk = s_k + s * kBK * kSQ;
+    float* dv = s_v + s * kBK * kSV;
+    for (int i = tid; i < kBK * kC4; i += kT) {
+      const int r = i / kC4, c = i - r * kC4;
+      const bool in = k0 + r < Sk;
+      const size_t off = in ? static_cast<size_t>(k0 + r) * HD + 4 * c : 0;
+      cp_async16(dk + r * kSQ + 4 * c, kb + off, in);
+      cp_async16(dv + r * kSV + 4 * c, vb + off, in);
+    }
+  };
+  if (n_tiles > 0) stage(tile0, 0);
+  cp_async_commit();
 
-  for (int k0 = (k_lo / kBK) * kBK; k0 <= k_hi; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = threadIdx.x; i < kBK * kV4; i += kThreads) {
-      const int r = i / kV4, c = i - r * kV4;
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-      if (k0 + r < Sk) {
-        const size_t off = static_cast<size_t>(k0 + r) * HD;
-        a = reinterpret_cast<const float4*>(kb + off)[c];
-        b = reinterpret_cast<const float4*>(vb + off)[c];
+  // This thread's rows: qr and qr + 8 (C fragment rows g, g + 8).
+  const int w0 = q0 + 16 * rg;
+  const int qr = w0 + g;
+  float o[kOT][4];
+#pragma unroll
+  for (int n = 0; n < kOT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_run[2] = {kMasked, kMasked}, l_run[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // tile it visible; tile it - 1's readers are done
+    if (it + 1 < n_tiles) stage(tile0 + it + 1, (it + 1) & 1);
+    cp_async_commit();
+    const int k0 = (tile0 + it) * kBK;
+    // No row of the warp sees a key of this tile (the same for the warp).
+    if (k0 > min(w0 + 15, sk_real - 1) ||
+        (window >= 0 && w0 - (k0 + kBK - 1) >= window))
+      continue;
+    const float* sk = s_k + (it & 1) * kBK * kSQ;
+    const float* sv = s_v + (it & 1) * kBK * kSV;
+
+    // Scores: sb the hi·hi products, ss the small ones.
+    // The tensor cores add into their accumulator with truncation, so
+    // hi·hi (the large terms) runs per 16-dim chunk from zero and joins sb
+    // by compensated (Kahan) addition, sc its running error.
+    float sb[kNT][4], ss[kNT][4], sc[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sb[j][e] = ss[j][e] = sc[j][e] = 0.f;
+    const float* qa = s_q + (16 * rg + g) * kSQ + 4 * t;
+    const float* kr = sk + g * kSQ + 4 * t;
+#pragma unroll 2
+    for (int c = d0; c < d0 + kW; c += 16) {
+      float x0[4], x1[4];
+      lds(qa + c, x0);
+      lds(qa + 8 * kSQ + c, x1);
+      // k-step 0 reads dims 4t, 4t+1 of the chunk, k-step 1 4t+2, 4t+3.
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        split(x0[2 * s], ah[s][0], al[s][0]);
+        split(x1[2 * s], ah[s][1], al[s][1]);
+        split(x0[2 * s + 1], ah[s][2], al[s][2]);
+        split(x1[2 * s + 1], ah[s][3], al[s][3]);
       }
-      reinterpret_cast<float4*>(s_k + r * kSK)[c] = a;
-      reinterpret_cast<float4*>(s_v + r * HD)[c] = b;
-    }
-    __syncthreads();
-
-    float s[kRows];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i] = 0.f;
-    const float4* kr = reinterpret_cast<const float4*>(s_k + lane * kSK);
-#pragma unroll 8
-    for (int c = 0; c < kV4; ++c) {
-      const float4 kk = kr[c];
+      for (int j = 0; j < kNT; ++j) {
+        float y[4];
+        lds(kr + j * 8 * kSQ + c, y);
+        unsigned bh[4], bl[4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float4 qq = reinterpret_cast<const float4*>(s_q + (row0 + i) * HD)[c];
-        s[i] = fmaf(qq.x, kk.x, s[i]);
-        s[i] = fmaf(qq.y, kk.y, s[i]);
-        s[i] = fmaf(qq.z, kk.z, s[i]);
-        s[i] = fmaf(qq.w, kk.w, s[i]);
-      }
-    }
-
-    const int kp = k0 + lane;
-    float p[kRows];
+        for (int e = 0; e < 4; ++e) split(y[e], bh[e], bl[e]);
+        float big[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qp = q0 + row0 + i;
-      const bool live = kp <= qp && kp < sk_real && (window < 0 || qp - kp < window);
-      const float si = live ? s[i] * scale : kMasked;
-      const float m_new = fmaxf(m[i], warp_max(si));
-      const float alpha = expf(m[i] - m_new);
-      p[i] = live ? expf(si - m_new) : 0.f;
-      l[i] = l[i] * alpha + warp_sum(p[i]);
-      m[i] = m_new;
+        for (int s = 0; s < 2; ++s) {
+          mma(ss[j], al[s], bh[2 * s], bh[2 * s + 1]);
+          mma(ss[j], ah[s], bl[2 * s], bl[2 * s + 1]);
+          mma(big, ah[s], bh[2 * s], bh[2 * s + 1]);
+        }
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-    }
-
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pc[i] = __shfl_sync(kFull, p[i], c);
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = lane + 32 * j;
-        if (col < HD) {
-          const float vv = s_v[c * HD + col];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][j] = fmaf(pc[i], vv, acc[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const float y = big[e] - sc[j][e];
+          const float z = sb[j][e] + y;
+          sc[j][e] = (z - sb[j][e]) - y;
+          sb[j][e] = z;
         }
       }
     }
-  }
 
-  float* ob = out + static_cast<size_t>(bh) * Sq * HD;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qp = q0 + row0 + i;
-    if (qp >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = lane + 32 * j;
-      if (col < HD) ob[static_cast<size_t>(qp) * HD + col] = acc[i][j] / den;
+      for (int e = 0; e < 4; ++e) sb[j][e] += ss[j][e] - sc[j][e];
+    if constexpr ((kSplit<HD> > 1)) {
+      // Both warps of the row group add the two shares (a + b == b + a).
+      float* mine = s_x + warp * kNT * 128 + lane;
+      const float* other = s_x + (warp ^ kGroups) * kNT * 128 + lane;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(4 * j + e) * 32] = sb[j][e];
+      bar_sync(1 + rg, 64);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sb[j][e] += other[(4 * j + e) * 32];
+    }
+
+    // Online softmax.  Element e of n-tile j: row qr + 8 (e / 2), key
+    // k0 + 8j + 2t + e % 2.  A tile whose every key every row of the warp
+    // sees needs no mask (the same for the warp).
+    unsigned live = (1u << (4 * kNT)) - 1u;
+    if (k0 + kBK - 1 > w0 || k0 + kBK > sk_real ||
+        (window >= 0 && w0 + 15 - k0 >= window)) {
+      live = 0u;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = qr + 8 * (e >> 1);
+          const int kp = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok = kp <= qp && kp < sk_real &&
+                          (window < 0 || qp - kp < window);
+          live |= ok ? 1u << (4 * j + e) : 0u;
+        }
+    }
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float s = (live >> (4 * j + e)) & 1u ? sb[j][e] * scale
+                                                   : kMasked;
+        sb[j][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = (live >> (4 * j + e)) & 1u
+                            ? expf(sb[j][e] - m_run[e >> 1]) : 0.f;
+        sb[j][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+
+    // O = alpha·O + P·V.  The tile's P·V runs on the tensor cores from zero
+    // and joins O by one rounded fused multiply-add, so O's many tiles add
+    // with round-to-nearest.  k-step kk: A = P's keys 8kk + 2t (cols t) and
+    // 8kk + 2t + 1 (cols t + 4); B = V rows 8kk + 2t, 8kk + 2t + 1, n-tile x
+    // of column group grp at column grp·8·kVN + kVN·g + x.
+    unsigned ph[kNT][4], pl[kNT][4];
+#pragma unroll
+    for (int kk = 0; kk < kNT; ++kk) {
+      split(sb[kk][0], ph[kk][0], pl[kk][0]);
+      split(sb[kk][2], ph[kk][1], pl[kk][1]);
+      split(sb[kk][1], ph[kk][2], pl[kk][2]);
+      split(sb[kk][3], ph[kk][3], pl[kk][3]);
+    }
+    const float* vr = sv + 2 * t * kSV + d0 + kVN * g;
+#pragma unroll
+    for (int grp = 0; grp < kOT / kVN; ++grp) {
+      float pv[kVN][4];
+#pragma unroll
+      for (int x = 0; x < kVN; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[x][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kNT; ++kk) {
+        float b0[kVN], b1[kVN];
+        lds(vr + 8 * kk * kSV + grp * 8 * kVN, b0);
+        lds(vr + (8 * kk + 1) * kSV + grp * 8 * kVN, b1);
+#pragma unroll
+        for (int x = 0; x < kVN; ++x) {
+          unsigned h0, l0, h1, l1;
+          split(b0[x], h0, l0);
+          split(b1[x], h1, l1);
+          mma(pv[x], pl[kk], h0, h1);
+          mma(pv[x], ph[kk], l0, l1);
+          mma(pv[x], ph[kk], h0, h1);
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < kVN; ++x) {
+        float (&c)[4] = o[grp * kVN + x];
+        c[0] = fmaf(c[0], alpha[0], pv[x][0]);
+        c[1] = fmaf(c[1], alpha[0], pv[x][1]);
+        c[2] = fmaf(c[2], alpha[1], pv[x][2]);
+        c[3] = fmaf(c[3], alpha[1], pv[x][3]);
+      }
     }
   }
+
+  // Row r's columns of group grp: grp·8·kVN + 2·kVN·t + (kVN·e + x), from
+  // element (r, e) of n-tile grp·kVN + x.
+  float* ob = out + static_cast<size_t>(bh) * Sq * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const int qp = qr + 8 * r;
+    if (qp >= Sq) continue;
+    const float den = fmaxf(l, 1e-30f);
+    float* orow = ob + static_cast<size_t>(qp) * HD + d0 + 2 * kVN * t;
+#pragma unroll
+    for (int grp = 0; grp < kOT / kVN; ++grp) {
+      float y[2 * kVN];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int x = 0; x < kVN; ++x)
+          y[kVN * e + x] = o[grp * kVN + x][2 * r + e] / den;
+#pragma unroll
+      for (int i = 0; i < 2 * kVN; i += 4)
+        *reinterpret_cast<float4*>(orow + grp * 8 * kVN + i) =
+            make_float4(y[i], y[i + 1], y[i + 2], y[i + 3]);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t configure() {
+  return cudaFuncSetAttribute(flash_kernel<HD>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(Layout<HD>::kBytes));
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
            int Sq, int Sk, int sk_real, int window, float scale,
            cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+  cudaError_t err = configure<HD>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>((Sq + kBQ - 1) / kBQ) * BH;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  flash_kernel<HD><<<static_cast<unsigned>(blocks), kThreads, bytes, stream>>>(
+  flash_kernel<HD><<<static_cast<unsigned>(blocks), kThreads<HD>,
+                     Layout<HD>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), BH, Sq, Sk,
       sk_real, window, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Dynamic shared bytes and blocks an SM of the instantiation for hd.
+template <int HD>
+int resources(int* smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = configure<HD>();
+  *smem_bytes = static_cast<int>(Layout<HD>::kBytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, flash_kernel<HD>, kThreads<HD>, Layout<HD>::kBytes);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -216,6 +467,19 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64: return launch<64>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
     case 128: return launch<128>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
     case 256: return launch<256>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The kernel's dynamic shared memory and blocks an SM at head dim hd.
+extern "C" int flash_attention_resources(int hd, int* smem_bytes,
+                                         int* blocks_per_sm) {
+  switch (hd) {
+    case 16: return resources<16>(smem_bytes, blocks_per_sm);
+    case 32: return resources<32>(smem_bytes, blocks_per_sm);
+    case 64: return resources<64>(smem_bytes, blocks_per_sm);
+    case 128: return resources<128>(smem_bytes, blocks_per_sm);
+    case 256: return resources<256>(smem_bytes, blocks_per_sm);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,12 +8,11 @@
 //   kTa      as kEsicp, with the threshold v_ta[b] of each document in place
 //            of the shared v_th (TA-ICP)
 //
-// kSims, kEsicp and kTa run the document tile (gather_tiled).  What bounds a
-// gather is moving means rows to the SMs.  A row segment is 4·Kt bytes, and
-// a batch names each of its distinct rows in several documents.  Walking the
-// tuples one by one (kSquare's walk below) re-reads a segment for every
-// tuple: 36 GB for a 4096-document NYT batch, of which 7.3 GB are distinct.
-// So each launch runs
+// All four run the document tile (gather_tiled).  What bounds a gather is
+// moving means rows to the SMs.  A row segment is 4·Kt bytes, and a batch
+// names each of its distinct rows in several documents.  Walking the tuples
+// one by one re-reads a segment for every tuple: 36 GB for a 4096-document
+// NYT batch, of which 7.3 GB are distinct.  So each launch runs
 //   1. a plan over the batch (plan_mark, plan_rank, plan_slots; scratch from
 //      the caller, nothing kept between calls): per tile of kBt documents a
 //      bitmap of its live ids, their ascending list (uid) and, for every
@@ -38,9 +37,12 @@
 // run time.
 // Order: a document's live ids ascend (SparseDocs), so visiting the tile's
 // distinct ids in ascending order visits its slots in slot order, duplicate
-// ids included: the order of the plain version.  A document whose live ids
-// do not ascend is flagged by the plan and walked slot by slot from global
-// memory after the chunks, so the order holds for any input.
+// ids included: the order of the plain version.  kSquare at t_th 0 makes a
+// row's dead id-0 slots live (CS-ICP), so the plan takes a row's head, its
+// live slots up to the last with an id other than 0, into the tile, and the
+// id-0 slots after it are added after the chunks, slot by slot.  A row
+// whose head's ids do not ascend is walked slot by slot from global memory
+// after the chunks, so the order holds for any input.
 // ES regions: `tail` (float(id) >= t_th) is a suffix of the tile's distinct
 // ids, from uth[tile] on.  Over the head, rho12 receives exactly the adds of
 // sims, so one accumulator (plus counts) serves both and is copied into
@@ -53,7 +55,8 @@
 //
 // Every accumulator adds the rounded product (no fused multiply-add) in
 // slot order, which is the order and rounding of the plain version in
-// kernels/ref.py: kernel and plain version agree bit for bit.
+// kernels/ref.py: kernel and plain version agree bit for bit.  kSquare adds
+// v·(m·m), each product rounded, as the plain version does.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -65,62 +68,6 @@ namespace {
 enum Mode { kSims = 0, kSquare = 1, kEsicp = 2, kTa = 3 };
 
 constexpr unsigned kFull = 0xffffffffu;
-
-// ---------------------------------------------------------------------------
-// kSquare: the slot walk.  Its live slots need not ascend (CS-ICP makes the
-// dead id-0 slots at the end of a row live when t_th is 0), so it keeps the
-// walk: block = 8 documents x 1024 columns, each live tuple read from L2.
-constexpr int kWalkThreads = 256;
-constexpr int kWalkCols = 4;
-constexpr int kWalkTileK = kWalkThreads * kWalkCols;
-constexpr int kWalkDocs = 8;
-constexpr int kWalkSlots = 512;
-
-__global__ void __launch_bounds__(kWalkThreads)
-square_walk_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
-                   const float* __restrict__ means_t, int B, int P, int D,
-                   int K, float* __restrict__ sims) {
-  __shared__ int s_id[kWalkSlots];
-  __shared__ float s_v[kWalkSlots];
-  const int k_base = blockIdx.x * kWalkTileK + threadIdx.x;
-  const int b0 = blockIdx.y * kWalkDocs;
-  for (int bi = 0; bi < kWalkDocs; ++bi) {
-    const int b = b0 + bi;
-    if (b >= B) break;  // the same for every thread of the block
-    float acc[kWalkCols];
-#pragma unroll
-    for (int j = 0; j < kWalkCols; ++j) acc[j] = 0.0f;
-    const size_t row = static_cast<size_t>(b) * P;
-    for (int p0 = 0; p0 < P; p0 += kWalkSlots) {
-      const int n = min(kWalkSlots, P - p0);
-      __syncthreads();  // the previous pass has finished reading s_id/s_v
-      for (int i = threadIdx.x; i < n; i += kWalkThreads) {
-        s_id[i] = ids[row + p0 + i];
-        s_v[i] = vals[row + p0 + i];
-      }
-      __syncthreads();
-      for (int i = 0; i < n; ++i) {
-        const float v = s_v[i];
-        const int id = s_id[i];
-        if (v == 0.0f || id < 0 || id >= D) continue;  // dead slot
-        const float* mrow = means_t + static_cast<size_t>(id) * K;
-#pragma unroll
-        for (int j = 0; j < kWalkCols; ++j) {
-          const int k = k_base + j * kWalkThreads;
-          if (k < K) {
-            const float m = __ldg(mrow + k);
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(v, __fmul_rn(m, m)));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kWalkCols; ++j) {
-      const int k = k_base + j * kWalkThreads;
-      if (k < K) sims[static_cast<size_t>(b) * K + k] = acc[j];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The plan: per document tile, its distinct live ids and every live slot's
@@ -137,12 +84,12 @@ struct Plan {
   int* ucount;     // (tiles,) how many
   int* uth;        // (tiles,) how many have float(id) < t_th
   int2* rec;       // (B, P) live slots in order: (u, value bits), then kEnd
-  int* ordered;    // (B,) 1 when the row's live ids ascend
+  int* walk;       // (B,) the slot from which the row is walked slot by slot
 };
 
 struct Layout {
   size_t tiles, words, cap;
-  size_t bits, wbase, uid, ucount, uth, rec, ordered, total;  // byte offsets
+  size_t bits, wbase, uid, ucount, uth, rec, walk, total;  // byte offsets
 };
 
 size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
@@ -160,7 +107,7 @@ Layout plan_layout(int B, int P, int D, int bt) {
   L.ucount = off;  off += align256(L.tiles * 4);
   L.uth = off;     off += align256(L.tiles * 4);
   L.rec = off;     off += align256(static_cast<size_t>(B) * P * 8);
-  L.ordered = off; off += align256(static_cast<size_t>(B) * 4);
+  L.walk = off;    off += align256(static_cast<size_t>(B) * 4);
   L.total = off;
   return L;
 }
@@ -243,24 +190,38 @@ plan_rank(const unsigned* __restrict__ bits, int W, int cap, float t_th,
   }
 }
 
-// One warp per document: do its live ids ascend?  Then its records, in slot
-// order, compacted, and kEnd after them (all kEnd when they do not ascend).
+// One warp per document.  Its head: the live slots up to the last with an
+// id other than 0; the rest of its live slots have id 0 (CS-ICP's dead
+// slots made live at t_th 0, or none).  When the head's ids ascend, its
+// records in slot order, compacted, kEnd after them, and walk[b] the first
+// slot after the head (P when no live slot follows); else all kEnd and
+// walk[b] = 0: the whole row is walked slot by slot.
 __global__ void __launch_bounds__(kPlanWarps * 32)
 plan_slots(const int* __restrict__ ids, const float* __restrict__ vals, int B,
            int P, int D, int bt, int W, const unsigned* __restrict__ bits,
            const int* __restrict__ wbase, int2* __restrict__ rec,
-           int* __restrict__ ordered) {
+           int* __restrict__ walk) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kPlanWarps + (threadIdx.x >> 5);
   if (b >= B) return;
   const size_t row = static_cast<size_t>(b) * P;
+  int last = -1;  // the head's last slot
+  for (int p0 = 0; p0 < P; p0 += 32) {
+    const int p = p0 + lane;
+    const int id = p < P ? ids[row + p] : 0;
+    const bool nz = p < P && id != 0 && live_slot(id, vals[row + p], D);
+    const unsigned mask = __ballot_sync(kFull, nz);
+    if (mask) last = p0 + 31 - __clz(mask);
+  }
   int run_max = INT_MIN;
-  bool down = false;
+  bool down = false, after = false;
   for (int p0 = 0; p0 < P; p0 += 32) {
     const int p = p0 + lane;
     const int id = p < P ? ids[row + p] : 0;
     const bool live = p < P && live_slot(id, vals[row + p], D);
-    int x = live ? id : INT_MIN;  // inclusive prefix max of the live ids
+    after |= live && p > last;
+    const bool head = live && p <= last;
+    int x = head ? id : INT_MIN;  // inclusive prefix max of the head's ids
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int y = __shfl_up_sync(kFull, x, o);
@@ -268,19 +229,20 @@ plan_slots(const int* __restrict__ ids, const float* __restrict__ vals, int B,
     }
     int before = __shfl_up_sync(kFull, x, 1);
     before = lane == 0 ? run_max : max(before, run_max);
-    down |= live && id < before;
+    down |= head && id < before;
     run_max = max(run_max, __shfl_sync(kFull, x, 31));
   }
   const bool ok = !__any_sync(kFull, down);
+  const bool tail_walk = __any_sync(kFull, after);
   const unsigned* tb = bits + static_cast<size_t>(b / bt) * W;
   const int* tw = wbase + static_cast<size_t>(b / bt) * W;
   int n = 0;
   if (ok) {
-    for (int p0 = 0; p0 < P; p0 += 32) {
+    for (int p0 = 0; p0 <= last; p0 += 32) {
       const int p = p0 + lane;
-      const int id = p < P ? ids[row + p] : 0;
-      const float v = p < P ? vals[row + p] : 0.0f;
-      const bool live = p < P && live_slot(id, v, D);
+      const int id = p <= last ? ids[row + p] : 0;
+      const float v = p <= last ? vals[row + p] : 0.0f;
+      const bool live = p <= last && live_slot(id, v, D);
       const unsigned mask = __ballot_sync(kFull, live);
       if (live) {
         const int w = id >> 5;
@@ -292,7 +254,7 @@ plan_slots(const int* __restrict__ ids, const float* __restrict__ vals, int B,
     }
   }
   for (int q = n + lane; q < P; q += 32) rec[row + q] = make_int2(kEnd, 0);
-  if (lane == 0) ordered[b] = ok ? 1 : 0;
+  if (lane == 0) walk[b] = !ok ? 0 : (tail_walk ? last + 1 : P);
 }
 
 // ---------------------------------------------------------------------------
@@ -416,11 +378,17 @@ struct Cursor {
   }
 };
 
+// The product a slot adds: v·m, or v·m² for kSquare.
+template <bool kSq>
+__device__ __forceinline__ float product(float v, float m) {
+  return kSq ? __fmul_rn(v, __fmul_rn(m, m)) : __fmul_rn(v, m);
+}
+
 // Document d of the warp adds its records with u < hi, read from the staged
 // chunk `buf` (rows c0..).  kTail: the records lie
 // at or past uth (ES Region 2/3 split); else the head, where sims and rho12
 // coincide and only sims (and counts) accumulate.
-template <bool kCounts, bool kTail, int d, int kDocs, int kCpl>
+template <bool kCounts, bool kTail, bool kSq, int d, int kDocs, int kCpl>
 __device__ __forceinline__ void walk_doc(
     const float* buf, int c0, int hi, const int2* __restrict__ rec, int b0,
     int B, int P, int lane, Cursor<kDocs>& cur, float thr,
@@ -434,7 +402,7 @@ __device__ __forceinline__ void walk_doc(
     cur.template advance<d>(rec, b0, B, P, lane);
 #pragma unroll
     for (int j = 0; j < kCpl; ++j) {
-      const float c = __fmul_rn(v, m[j]);
+      const float c = product<kSq>(v, m[j]);
       acc[d][j] = __fadd_rn(acc[d][j], c);
       if constexpr (kTail) {
         const bool exact = m[j] >= thr;
@@ -448,7 +416,8 @@ __device__ __forceinline__ void walk_doc(
   }
 }
 
-template <bool kCounts, bool kTail, int kDocs, int kCpl, int d = 0>
+template <bool kCounts, bool kTail, bool kSq, int kDocs, int kCpl,
+          int d = 0>
 __device__ __forceinline__ void walk_chunk(
     const float* buf, int c0, int hi, const int2* __restrict__ rec, int b0,
     int B, int P, int lane, Cursor<kDocs>& cur,
@@ -456,9 +425,9 @@ __device__ __forceinline__ void walk_chunk(
     float (&acc)[kDocs][kCpl], float (&rho)[kDocs][kCpl],
     float (&yv)[kDocs][kCpl], int (&cnt)[kDocs][kCpl]) {
   if constexpr (d < kDocs) {
-    walk_doc<kCounts, kTail, d>(buf, c0, hi, rec, b0, B, P, lane, cur,
-                                thr[d], acc, rho, yv, cnt);
-    walk_chunk<kCounts, kTail, kDocs, kCpl, d + 1>(
+    walk_doc<kCounts, kTail, kSq, d>(buf, c0, hi, rec, b0, B, P, lane, cur,
+                                     thr[d], acc, rho, yv, cnt);
+    walk_chunk<kCounts, kTail, kSq, kDocs, kCpl, d + 1>(
         buf, c0, hi, rec, b0, B, P, lane, cur, thr, acc, rho, yv, cnt);
   }
 }
@@ -475,11 +444,13 @@ gather_tiled(const int* __restrict__ ids, const float* __restrict__ vals,
              float t_th, float v_th, const float* __restrict__ v_ta,
              const int* __restrict__ uid, const int* __restrict__ ucount,
              const int* __restrict__ uth, const int2* __restrict__ rec,
-             const int* __restrict__ ordered, int cap, int vec,
+             const int* __restrict__ walk, int cap, int vec,
              int slab_fastest,
              float* __restrict__ sims, float* __restrict__ rho12,
              float* __restrict__ y, int* __restrict__ counts) {
   constexpr bool kRegions = kMode == kEsicp || kMode == kTa;
+  constexpr bool kSq = kMode == kSquare;
+  static_assert(!(kSq && kCounts), "kSquare takes no counts");
   constexpr int kDocs = kBt / kWarps;
   constexpr int kKt = 32 * kCpl;
   constexpr int kRows = kBufFloats / kKt;
@@ -575,8 +546,8 @@ gather_tiled(const int* __restrict__ ids, const float* __restrict__ vals,
     if constexpr (kRegions) {
       const int h = min(c_end, u_th);
       if (h > c0)
-        walk_chunk<kCounts, false>(buf, c0, h, rec, b0, B, P, lane, cur,
-                                   thr, acc, rho, yv, cnt);
+        walk_chunk<kCounts, false, kSq>(buf, c0, h, rec, b0, B, P, lane,
+                                        cur, thr, acc, rho, yv, cnt);
       if (c_end > u_th) {
         if (!crossed) {
 #pragma unroll
@@ -585,12 +556,12 @@ gather_tiled(const int* __restrict__ ids, const float* __restrict__ vals,
             for (int j = 0; j < kCpl; ++j) rho[d][j] = acc[d][j];
           crossed = true;
         }
-        walk_chunk<kCounts, true>(buf, c0, c_end, rec, b0, B, P, lane, cur,
-                                  thr, acc, rho, yv, cnt);
+        walk_chunk<kCounts, true, kSq>(buf, c0, c_end, rec, b0, B, P, lane,
+                                       cur, thr, acc, rho, yv, cnt);
       }
     } else {
-      walk_chunk<kCounts, false>(buf, c0, c_end, rec, b0, B, P, lane, cur,
-                                 thr, acc, rho, yv, cnt);
+      walk_chunk<kCounts, false, kSq>(buf, c0, c_end, rec, b0, B, P, lane,
+                                      cur, thr, acc, rho, yv, cnt);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&s_empty[s]);
@@ -602,13 +573,14 @@ gather_tiled(const int* __restrict__ ids, const float* __restrict__ vals,
       for (int j = 0; j < kCpl; ++j) rho[d][j] = acc[d][j];
   }
 
-  // A document whose live ids do not ascend: slot by slot from L2.
+  // The slots of a document from walk[b] on, slot by slot from L2: all of
+  // them when its live ids do not ascend, else its trailing live id-0 slots.
 #pragma unroll
   for (int d = 0; d < kDocs; ++d) {
     const int b = b0 + d;
-    if (b >= B || ordered[b]) continue;  // the same for the whole warp
+    if (b >= B) continue;  // the same for the whole warp
     const size_t row = static_cast<size_t>(b) * P;
-    for (int p = 0; p < P; ++p) {
+    for (int p = walk[b]; p < P; ++p) {
       const int id = ids[row + p];
       const float v = vals[row + p];
       if (!live_slot(id, v, D)) continue;
@@ -619,7 +591,7 @@ gather_tiled(const int* __restrict__ ids, const float* __restrict__ vals,
         const int k = k0 + lane_col<kCpl>(lane, j);
         if (k >= K) continue;
         const float m = __ldg(mrow + k);
-        const float c = __fmul_rn(v, m);
+        const float c = product<kSq>(v, m);
         acc[d][j] = __fadd_rn(acc[d][j], c);
         if constexpr (kRegions) {
           const bool exact = !tail || m >= thr[d];
@@ -666,6 +638,7 @@ struct Args {
 
 template <int kMode, bool kCounts, int kBt, int kCpl, int kWarps>
 int launch_tiled(const Args& a) {
+  constexpr bool kRegions = kMode == kEsicp || kMode == kTa;
   constexpr int kKt = 32 * kCpl;
   constexpr int kSmem = kStages * kBufFloats * 4;
   auto kern = gather_tiled<kMode, kCounts, kBt, kCpl, kWarps>;
@@ -691,11 +664,11 @@ int launch_tiled(const Args& a) {
          reinterpret_cast<int*>(base + L.ucount),
          reinterpret_cast<int*>(base + L.uth),
          reinterpret_cast<int2*>(base + L.rec),
-         reinterpret_cast<int*>(base + L.ordered)};
+         reinterpret_cast<int*>(base + L.walk)};
   const int W = static_cast<int>(L.words);
   const int cap = static_cast<int>(L.cap);
   const int tiles = static_cast<int>(L.tiles);
-  const float t_th = (kMode == kSims) ? INFINITY : a.t_th;
+  const float t_th = kRegions ? a.t_th : INFINITY;
   if (L.tiles * L.words)
     err = cudaMemsetAsync(p.bits, 0, L.tiles * L.words * 4, a.stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -707,7 +680,7 @@ int launch_tiled(const Args& a) {
                                                   p.uth);
   plan_slots<<<plan_blocks, kPlanWarps * 32, 0, a.stream>>>(
       a.ids, a.vals, a.B, a.P, a.D, kBt, W, p.bits, p.wbase, p.rec,
-      p.ordered);
+      p.walk);
   const int vec = (a.K % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(a.means_t) % 16 == 0) ? 1 : 0;
   const dim3 grid = a.slab_fastest
@@ -718,7 +691,7 @@ int launch_tiled(const Args& a) {
   kern<<<grid, (kWarps + 1) * 32, kSmem,
          a.stream>>>(a.ids, a.vals, a.means_t, a.B, a.P, a.D, a.K, t_th,
                      a.v_th, a.v_ta, p.uid, p.ucount, p.uth, p.rec,
-                     p.ordered, cap, vec, a.slab_fastest, a.sims, a.rho12,
+                     p.walk, cap, vec, a.slab_fastest, a.sims, a.rho12,
                      a.y, a.counts);
   return static_cast<int>(cudaGetLastError());
 }
@@ -728,33 +701,43 @@ int launch_tiled(const Args& a) {
 // make 8 warps a block, two blocks an SM, and leave ptxas 128 registers a
 // thread (nine warps would leave 96, and the ES modes spill).  Setting 0 is
 // what the entry points use; the others are for scripts/gather_probe.py
-// (sims without counts, esicp with counts).
+// (sims without counts, esicp with counts).  kSquare keeps no counts or
+// regions, so its warps have registers for more documents: six a warp (42
+// a tile) measured fastest against 28 × 256, 56 × 128 and 64 with 16
+// warps (scripts/gather_probe.py), so it has setting 0 only.
 template <int kMode, bool kCounts>
 int launch_setting(int setting, const Args& a) {
   constexpr bool kRegions = kMode == kEsicp || kMode == kTa;
-  if (setting == 0) {
-    if constexpr (kRegions) return launch_tiled<kMode, kCounts, 14, 8, 7>(a);
-    else return launch_tiled<kMode, kCounts, 28, 8, 7>(a);
-  }
-  if constexpr (kMode == kSims && !kCounts) {
-    if (setting == 1) return launch_tiled<kMode, kCounts, 32, 8, 8>(a);
-    if (setting == 2) return launch_tiled<kMode, kCounts, 64, 8, 16>(a);
-    if (setting == 3) return launch_tiled<kMode, kCounts, 28, 4, 7>(a);
-  }
-  if constexpr (kMode == kEsicp && kCounts) {
-    if (setting == 1) return launch_tiled<kMode, kCounts, 7, 8, 7>(a);
-    if (setting == 2) return launch_tiled<kMode, kCounts, 16, 8, 8>(a);
-    if (setting == 3) return launch_tiled<kMode, kCounts, 28, 4, 7>(a);
+  if constexpr (kMode == kSquare) {
+    if (setting == 0 && !kCounts)
+      return launch_tiled<kMode, false, 42, 8, 7>(a);
+  } else {
+    if (setting == 0) {
+      if constexpr (kRegions) return launch_tiled<kMode, kCounts, 14, 8, 7>(a);
+      else return launch_tiled<kMode, kCounts, 28, 8, 7>(a);
+    }
+    if constexpr (kMode == kSims && !kCounts) {
+      if (setting == 1) return launch_tiled<kMode, kCounts, 32, 8, 8>(a);
+      if (setting == 2) return launch_tiled<kMode, kCounts, 64, 8, 16>(a);
+      if (setting == 3) return launch_tiled<kMode, kCounts, 28, 4, 7>(a);
+    }
+    if constexpr (kMode == kEsicp && kCounts) {
+      if (setting == 1) return launch_tiled<kMode, kCounts, 7, 8, 7>(a);
+      if (setting == 2) return launch_tiled<kMode, kCounts, 16, 8, 8>(a);
+      if (setting == 3) return launch_tiled<kMode, kCounts, 28, 4, 7>(a);
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // kBt of launch_setting's instantiations.
 int tile_docs(int mode, int setting) {
-  static const int sims[] = {28, 32, 64, 28}, es[] = {14, 7, 16, 28};
+  static const int sims[] = {28, 32, 64, 28}, square[] = {42, -1, -1, -1},
+                   es[] = {14, 7, 16, 28};
   if (setting < 0 || setting > 7) return -1;
   setting %= 4;
   if (mode == kSims) return sims[setting];
+  if (mode == kSquare) return square[setting];
   if (mode == kEsicp || mode == kTa) return es[setting];
   return -1;
 }
@@ -768,6 +751,9 @@ int dispatch(int mode, int setting, Args a) {
     case kSims:
       return c ? launch_setting<kSims, true>(setting, a)
                : launch_setting<kSims, false>(setting, a);
+    case kSquare:
+      return c ? static_cast<int>(cudaErrorInvalidValue)
+               : launch_setting<kSquare, false>(setting, a);
     case kEsicp:
       return c ? launch_setting<kEsicp, true>(setting, a)
                : launch_setting<kEsicp, false>(setting, a);
@@ -781,17 +767,24 @@ int dispatch(int mode, int setting, Args a) {
 
 }  // namespace
 
-// kSquare's walk puts documents on gridDim.y.
-extern "C" int gather_max_rows() { return 65535 * kWalkDocs; }
+// Rows one launch takes at tile setting 0 in either grid order: with the
+// slabs fastest the tiles lie on gridDim.y, at most 65,535 of them, and the
+// smallest setting-0 tile holds 14 documents.
+extern "C" int gather_max_rows() {
+  int bt = INT_MAX;
+  for (int mode = kSims; mode <= kTa; ++mode)
+    if (tile_docs(mode, 0) < bt) bt = tile_docs(mode, 0);
+  return 65535 * bt;
+}
 
-// Documents per tile of `mode` (0 sims, 2 esicp, 3 ta) at tile setting
-// `setting`; -1 for an unknown setting.
+// Documents per tile of `mode` (0 sims, 1 square, 2 esicp, 3 ta) at tile
+// setting `setting`; -1 for an unknown setting.
 extern "C" int gather_tile_docs(int mode, int setting) {
   return tile_docs(mode, setting);
 }
 
-// Bytes of scratch one launch of `mode` (0 sims, 2 esicp, 3 ta) at tile
-// setting `setting` needs for its plan; -1 for an unknown setting.
+// Bytes of scratch one launch of `mode` (0 sims, 1 square, 2 esicp, 3 ta)
+// at tile setting `setting` needs for its plan; -1 for an unknown setting.
 extern "C" long long gather_scratch_bytes(int B, int P, int D, int mode,
                                           int setting) {
   const int bt = tile_docs(mode, setting);
@@ -854,18 +847,8 @@ extern "C" int sparse_sim_launch(const void* ids, const void* vals,
                                  const void* means_t, int B, int P, int D,
                                  int K, int square, void* sims, void* counts,
                                  void* scratch, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (square) {
-    if (counts) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid((K + kWalkTileK - 1) / kWalkTileK,
-                    (B + kWalkDocs - 1) / kWalkDocs);
-    square_walk_kernel<<<grid, kWalkThreads, 0, s>>>(
-        static_cast<const int*>(ids), static_cast<const float*>(vals),
-        static_cast<const float*>(means_t), B, P, D, K,
-        static_cast<float*>(sims));
-    return static_cast<int>(cudaGetLastError());
-  }
-  return gather_setting_launch(kSims, 0, ids, vals, means_t, B, P, D, K,
+  return gather_setting_launch(square ? kSquare : kSims, 0, ids, vals,
+                               means_t, B, P, D, K,
                                0.0f, 0.0f, nullptr, nullptr, nullptr, sims,
                                counts, scratch, stream);
 }

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -98,6 +99,29 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         err.argtypes = [ctypes.c_int]
         _LIBS[name] = lib
     return lib
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel of ``csrc/<name>.cu``: its mangled name, registers and
+    spill bytes, from the compiler's resource report kept beside the
+    built library."""
+    report, cur = [], None
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            report.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return report
 
 
 def check(lib: ctypes.CDLL, name: str, rc: int) -> None:

@@ -71,8 +71,8 @@ _SIG = {
                                             _build.c_int]),
     "gather_max_rows": (_build.c_int, []),
 }
-# The tiled modes' numbers in gather.cu (kSquare, 1, keeps the slot walk).
-SIMS, ESICP, TA = 0, 2, 3
+# The modes' numbers in gather.cu.
+SIMS, SQUARE, ESICP, TA = 0, 1, 2, 3
 
 
 def library():

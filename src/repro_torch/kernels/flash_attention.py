@@ -13,17 +13,36 @@ softmax), which it matches to rounding, not bit for bit.
 
 What bounds it on the card.  Each live (query, key) pair costs 2·hd
 operations for the score and 2·hd for the value product: at BH 8, S 4096,
-hd 256 full causal that is 6.9·10^10 fp32 operations (1.03 ms at the
-67 TFLOP/s fp32 rate) against 134 MB of q, k, v and output (0.04 ms at
-3.35 TB/s), so operations; with a 512-token window 1.7·10^10 (0.25 ms).
+hd 256 full causal that is 6.9·10^10 operations against 134 MB of q, k, v
+and output (0.04 ms at 3.35 TB/s), so operations.  In fp32 on the CUDA
+cores (67 TFLOP/s) that is 1.026 ms, 0.240 ms with a 512-token window.
+One TF32 product on the tensor cores (495 TFLOP/s) keeps 11 significant
+bits of each operand, an error near 2^-11 of a score that would miss the
+2e-5 tolerance.  So each product runs in three TF32 passes (split-TF32:
+x = hi + lo, both TF32; lo·hi + hi·lo + hi·hi drops only lo·lo, about
+2^-22): 3 × 6.9·10^10 operations at 495 TFLOP/s, 0.417 ms full causal and
+0.098 ms at window 512, the bound of the split work.  With scores ≈ 30
+the tensor cores' truncating adds are what costs accuracy, not the
+dropped lo·lo: plain adds of the score's chunks left up to 3e-5 of error
+against float64, a compensated sum of them up to 2e-5 with or without
+lo·lo (``scripts/flash_probe.py``), so the kernel runs three passes.
+
 The TPU kernel used 128 × 128 blocks in VMEM on the MXU and streamed
-every key block, masked or not.  Here hd 256 in fp32 makes a 32-row tile
-32 KB, so a block holds 32 query rows and walks 32-key tiles (99 KB of
-dynamic shared memory, two blocks per SM), skips the key tiles that lie
-wholly above the diagonal or outside the window (about 8× less work for
-the 512-window layers at S 4096), and keeps the (32 × hd) accumulator in
-registers, 4 rows × hd/32 columns per thread.  fp32 FMAs on the CUDA
-cores: a TF32 tensor-core product would miss the 2e-5 tolerance.
+every key block, masked or not.  Here a block owns 64 query rows in four
+groups of 16 (the M of ``mma.sync`` m16n8k8) and walks 32-key tiles that
+two cp.async stages bring in ahead of the arithmetic.  A group is one
+warp, or at hd 256 two warps with half the head dims each, which add
+their shares of the scores through shared memory and keep half of the
+(16 × hd) accumulator each: 64 registers a thread, not 128, so nothing
+spills (222 KB of shared memory, one block of 8 warps an SM).  It skips
+the key tiles that lie wholly above the diagonal or outside the window
+(about 8× less work for the 512-window layers at S 4096), and a group
+skips the arithmetic of a tile none of its rows sees.  The tensor cores
+add into their accumulators by truncation, so no chain runs long: the
+score's hi·hi terms per 16-dim chunk from zero, its small terms apart,
+and each tile's P·V from zero, joined to O by one rounded fmaf.  Operands
+are split as they are read from shared memory, whose row strides leave
+no bank conflict.
 """
 from __future__ import annotations
 
@@ -40,11 +59,25 @@ _SIG = {
         _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.c_int,
         _build.c_int, _build.c_int, _build.c_int, _build.c_int, _build.c_int,
         _build.c_float, _build.ptr]),
+    "flash_attention_resources": (_build.c_int, [
+        _build.c_int, _build.ptr, _build.ptr]),
 }
 
 
 def library():
     return _build.load("flash_attention", _SIG)
+
+
+def resources(hd: int) -> tuple[int, int]:
+    """(dynamic shared bytes, blocks an SM) of the instantiation for hd."""
+    import ctypes
+
+    lib = library()
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = lib.flash_attention_resources(hd, ctypes.byref(smem),
+                                       ctypes.byref(blocks))
+    _build.check(lib, "flash_attention", rc)
+    return smem.value, blocks.value
 
 
 def launch(q, k, v, window: int, sk_real: int, out) -> None:

@@ -21,17 +21,21 @@ walk, and 2.1 ms with every row L2-resident: about two fifths of the time
 is shared-memory reads and issue, the rest rows that miss L2.  The TPU's densify-then-MXU slab, its occupancy map
 and cached head slabs have no counterpart.  fp32 throughout, no TF32.
 
-The ``square`` variant (``square_walk_kernel``) squares each gathered
+The ``square`` variant (``gather_tiled<kSquare>``) squares each gathered
 value before the product, v·m² — CS-ICP's tail sum of squares.  ``repro``
 passes ``means_t * means_t`` to its kernel, a third (D, K) matrix; here no
-such matrix exists, and the bits equal sparse_sim over it.  It keeps the
-walk tuple by tuple (block = 8 documents × 1,024 columns): CS-ICP makes a
-row's dead id-0 slots live at t_th 0, so its live ids need not ascend.
+such matrix exists, and the bits equal sparse_sim over it.  CS-ICP passes 1
+on the tail slots (id ≥ t_th): the high-df ids, few distinct rows that
+many documents of a tile name, so the tile stages each once.  At t_th 0
+its dead id-0 slots at the end of a row are live too, so the row's ids do
+not ascend: the plan gives the tile the row's head (its live slots up to
+the last id other than 0), and the id-0 slots after it are added after
+the tile's chunks, slot by slot, which keeps the plain version's order.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.esicp_gather import SIMS, library, scratch
+from repro_torch.kernels.esicp_gather import SIMS, SQUARE, library, scratch
 from repro_torch.kernels.ref import sparse_sim as plain  # noqa: F401
 
 
@@ -45,6 +49,6 @@ def launch(ids, vals, means_t, dim: int, sims, counts, *,
         ids.data_ptr(), vals.data_ptr(), means_t.data_ptr(), b, p, dim, k,
         int(square), sims.data_ptr(),
         None if counts is None else counts.data_ptr(),
-        None if square else scratch(lib, ids, dim, SIMS).data_ptr(),
+        scratch(lib, ids, dim, SQUARE if square else SIMS).data_ptr(),
         _build.stream_ptr(ids.device))
     _build.check(lib, "gather", rc)

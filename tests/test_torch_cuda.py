@@ -13,7 +13,8 @@ a multiple of 4 (rows copied by the producer warp, not in bulk), more
 distinct rows in a tile than the ring holds (P 600), tiles whose documents
 share no id and tiles of identical documents, rows whose live ids do not
 ascend (the plan's slot-order walk), t_th at 0, inside and at D, every
-tile setting of ``scripts/gather_probe.py``; beside them dead slots, empty
+tile setting of ``scripts/gather_probe.py``, the square variant at t_th 0
+(each row's head on the tile, its live id-0 slots after it walked); beside them dead slots, empty
 rows, duplicate ids and assignments outside [0, K).  For segment_update K above one
 shared-memory column tile and a term with 12,000 postings; for sketch_sim
 tiles whose leading s are all zero.  Kernel and plain version add in the
@@ -130,8 +131,9 @@ def test_gather_tile_edges_equal_plain(dev, case, t_frac):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_gather_tile_settings_equal_plain(dev, setting, shape):
     """Every tile setting the probe times (4: setting 0 with the column
-    slabs fastest in the grid): sims without counts and esicp with counts,
-    bit for bit."""
+    slabs fastest in the grid): sims without counts, square at t_th = 0
+    (settings 0 and 4, its only ones) and esicp with counts, bit for
+    bit."""
     from repro_torch.kernels import esicp_gather as kern
 
     ids, vals, means, _ = _inputs(*shape, seed=12)
@@ -142,10 +144,16 @@ def test_gather_tile_settings_equal_plain(dev, setting, shape):
     t_th, v_th = int(0.7 * d), 0.4
     out = [torch.empty((b, k), device=dev) for _ in range(3)]
     cnt = torch.empty((b, k), dtype=torch.int32, device=dev)
-    for mode, counts in ((kern.SIMS, None), (kern.ESICP, cnt)):
+    ones = (g[0] >= 0).to(torch.float32)
+    for mode, counts in ((kern.SIMS, None), (kern.SQUARE, None),
+                         (kern.ESICP, cnt)):
+        if lib.gather_tile_docs(mode, setting) < 0:
+            assert mode == kern.SQUARE and setting in (1, 2, 3)
+            continue
+        x = (g[0], ones, g[2]) if mode == kern.SQUARE else g
         scratch = kern.scratch(lib, g[0], d, mode, setting)
         rc = lib.gather_setting_launch(
-            mode, setting, *(x.data_ptr() for x in g), b, p, d, k,
+            mode, setting, *(t.data_ptr() for t in x), b, p, d, k,
             float(t_th), v_th, None, out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), None if counts is None else counts.data_ptr(),
             scratch.data_ptr(), stream)
@@ -153,6 +161,8 @@ def test_gather_tile_settings_equal_plain(dev, setting, shape):
         torch.cuda.synchronize()
         if mode == kern.SIMS:
             assert torch.equal(out[2], ref.sparse_sim(*g)[0])
+        elif mode == kern.SQUARE:
+            assert torch.equal(out[2], ref.sparse_sim(*x, square=True)[0])
         else:
             want = ref.esicp_gather(*g, t_th, v_th, with_counts=True)
             for a, w in zip((*out, cnt), want):
@@ -295,27 +305,39 @@ def test_ta_gather_variant_equal_plain(dev, shape):
     assert ops.LAUNCHES["esicp_gather"] == 0
 
 
+@pytest.mark.parametrize("t_frac", [0.0, 0.6])
 @pytest.mark.parametrize("shape", SHAPES)
-def test_square_variant_equal_plain(dev, shape):
-    """The squared-rows launch at t_th = 0, where the substituted values
-    make the dead slots (id 0) live, as CS-ICP passes them."""
+def test_square_variant_equal_plain(dev, shape, t_frac):
+    """The squared-rows launch on the document tile as CS-ICP passes it (1
+    on the slots with id >= t_th): at t_th = 0 the dead slots (id 0) are
+    live and the rows' ids do not ascend (walked slot by slot); at a t_th
+    inside the ids only the tail counts.  Batches above a tile (4096, 37)
+    and below it (9)."""
     ids, vals, means, _ = _inputs(*shape, seed=9)
-    ones = (ids >= 0).to(torch.float32)
+    ones = (ids >= int(t_frac * shape[2])).to(torch.float32)
     g = [x.to(dev) for x in (ids, ones, means)]
+    ops.reset_counts()
     got, none = ops.sparse_sim(*g, square=True)
     assert none is None
+    assert ops.LAUNCHES["sparse_sim_square"] == 1
+    assert ops.LAUNCHES["sparse_sim"] == 0
     assert torch.equal(got, ref.sparse_sim(*g, square=True)[0])
     assert torch.equal(got, ref.sparse_sim(g[0], g[1], g[2] * g[2])[0])
     with pytest.raises(ValueError, match="no counts"):
         ops.sparse_sim(*g, square=True, with_counts=True)
 
 
-# (bh, sq, sk, hd, window, sk_real): tails of the 32-row and 32-key tiles,
-# Sq != Sk with rows that see no key, the hd 256 tile, every head dim.
+# (bh, sq, sk, hd, window, sk_real): tails of the 64-row and 32-key tiles
+# (Sq and Sk not multiples of either, Sq 64 + 1 at hd 256), Sq != Sk with
+# rows that see no key, windows smaller than a key tile, sk_real cutting a
+# key tile, every head dim.
 FLASH_SHAPES = [(2, 64, 64, 32, -1, None), (3, 200, 136, 64, 48, None),
                 (4, 256, 256, 128, 48, None), (2, 300, 300, 256, -1, None),
                 (2, 300, 300, 256, 100, None), (1, 37, 37, 16, 8, None),
-                (2, 128, 128, 32, 20, 90)]
+                (2, 128, 128, 32, 20, 90), (2, 100, 150, 64, -1, None),
+                (3, 130, 70, 128, -1, None), (2, 200, 200, 64, 5, None),
+                (2, 97, 97, 16, 1, None), (2, 160, 160, 128, -1, 77),
+                (2, 150, 150, 256, 40, 101), (2, 65, 65, 256, -1, None)]
 
 
 @pytest.mark.parametrize("bh,sq,sk,hd,window,sk_real", FLASH_SHAPES)
@@ -337,6 +359,24 @@ def test_flash_attention_close_to_plain(dev, bh, sq, sk, hd, window, sk_real):
     live_keys = min(sk, sk if sk_real is None else sk_real)
     if window > 0 and sq >= live_keys + window:
         assert bool((got[:, live_keys + window - 1:] == 0).all())
+
+
+@pytest.mark.parametrize("bh,s,hd,window", [(2, 300, 256, -1),
+                                             (3, 200, 64, 48)])
+def test_flash_attention_large_scores_close_to_plain(dev, bh, s, hd, window):
+    """Scores of magnitude ≈ 30 (q, k scaled by 6): the online rescaling
+    under the split-TF32 products stays within 2e-5 of the plain version
+    evaluated in float64, and closer to it than the plain version in
+    float32 (whose own error there, about 9e-5 at hd 256, exceeds 2e-5)."""
+    gen = torch.Generator(device=dev).manual_seed(bh + s + hd)
+    q, k, v = (torch.randn((bh, s, hd), generator=gen, device=dev)
+               for _ in range(3))
+    q, k = q * 6, k * 6
+    got = ops.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention(q.double(), k.double(), v.double(), window)
+    torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=2e-5)
+    plain = ref.flash_attention(q, k, v, window).double()
+    assert (got.double() - want).abs().max() <= (plain - want).abs().max()
 
 
 def test_flash_attention_prefill_launches_once_per_layer(dev):

@@ -233,30 +233,41 @@ def test_segment_update_by_term_validated():
 
 def _tile_plan(ids, vals, d: int, bt: int):
     """The tiled gather's plan, plainly: per tile of ``bt`` rows its
-    distinct live ids ascending, each live slot's index into them (-1 on
-    dead slots) and whether each row's live ids ascend."""
+    distinct live ids ascending, each head slot's index into them (-1
+    elsewhere) and the slot from which each row is walked slot by slot.  A
+    row's head is its live slots up to the last with an id other than 0;
+    when the head's ids ascend, the tile adds it and the walk takes the
+    live id-0 slots after it (from P: none), else the walk takes the row."""
+    b, p = ids.shape
     live = (vals != 0) & (ids >= 0) & (ids < d)
+    pos = torch.arange(p).expand(b, p)
+    last = torch.where(live & (ids != 0), pos, -1).max(dim=1).values
+    head = live & (pos <= last[:, None])
+    big = torch.iinfo(torch.int64).min
+    prev = torch.cummax(torch.where(head, ids.long(), big), dim=1).values
+    prev = torch.nn.functional.pad(prev, (1, 0), value=big)[:, :-1]
+    ordered = ~(head & (ids.long() < prev)).any(dim=1)
+    after = (live & (pos > last[:, None])).any(dim=1)
+    walk = torch.where(ordered, torch.where(after, last + 1, p), 0)
     index = torch.full(ids.shape, -1, dtype=torch.int64)
     tiles = []
-    for t0 in range(0, ids.shape[0], bt):
+    for t0 in range(0, b, bt):
         sl = slice(t0, t0 + bt)
         uid = torch.unique(ids[sl][live[sl]].long())       # sorted
-        index[sl] = torch.where(live[sl], torch.searchsorted(
-            uid, ids[sl].long()), -1)
+        index[sl] = torch.where(head[sl] & ordered[sl, None],
+                                torch.searchsorted(uid, ids[sl].long()), -1)
         tiles.append((t0, uid))
-    big = torch.iinfo(torch.int64).min
-    prev = torch.cummax(torch.where(live, ids.long(), big), dim=1).values
-    prev = torch.nn.functional.pad(prev, (1, 0), value=big)[:, :-1]
-    ordered = ~(live & (ids.long() < prev)).any(dim=1)
-    return tiles, index, ordered
+    return tiles, index, walk
 
 
-def _merged_gather(ids, vals, means, d: int, bt: int, t_th=None, thr=None):
+def _merged_gather(ids, vals, means, d: int, bt: int, t_th=None, thr=None,
+                   square=False):
     """sims [, rho12, y] and counts summed in the tiled kernel's order: per
     tile, the (distinct id, slot) pairs ascending; over the head
     (float(id) < t_th) one accumulator, copied into rho12 where the tile's
-    ids cross t_th; rows whose live ids do not ascend slot by slot after."""
-    tiles, index, ordered = _tile_plan(ids, vals, d, bt)
+    ids cross t_th; each row's slots from its walk on slot by slot after.
+    ``square``: each slot adds v·(m·m)."""
+    tiles, index, walk = _tile_plan(ids, vals, d, bt)
     b, p = ids.shape
     k = means.shape[1]
     acc, rho, y = (torch.zeros((b, k)) for _ in range(3))
@@ -266,7 +277,7 @@ def _merged_gather(ids, vals, means, d: int, bt: int, t_th=None, thr=None):
         """One tuple; ``walk``: slot order, rho12 has no copy to start
         from, so the head adds to it too."""
         v, m = vals[r, q], means[ids[r, q]]
-        c = v * m
+        c = v * (m * m) if square else v * m
         acc[r] += c
         if walk and t_th is not None and not tail:
             rho[r] += c
@@ -284,7 +295,7 @@ def _merged_gather(ids, vals, means, d: int, bt: int, t_th=None, thr=None):
         u_th = (len(uid) if t_th is None else
                 int((uid.to(torch.float32) < t_th).sum()))
         pairs = sorted((int(index[r, q]), q, r) for r in rows for q in range(p)
-                       if index[r, q] >= 0 and ordered[r])
+                       if index[r, q] >= 0)
         crossed = False
         for u, q, r in pairs:
             if u >= u_th and not crossed:
@@ -293,35 +304,46 @@ def _merged_gather(ids, vals, means, d: int, bt: int, t_th=None, thr=None):
             add(r, q, u >= u_th)
         if not crossed:
             rho[t0:t0 + bt] = acc[t0:t0 + bt]
+        live = (vals != 0) & (ids >= 0) & (ids < d)
         for r in rows:
-            if not ordered[r]:
-                for q in range(p):
-                    if index[r, q] >= 0:
-                        add(r, q, t_th is not None
-                            and float(ids[r, q].to(torch.float32)) >= t_th,
-                            walk=True)
+            for q in range(int(walk[r]), p):
+                if live[r, q]:
+                    add(r, q, t_th is not None
+                        and float(ids[r, q].to(torch.float32)) >= t_th,
+                        walk=True)
     return acc, rho, y, cnt
 
 
 @pytest.mark.parametrize("bt", [1, 4, 64])
 @pytest.mark.parametrize("t_frac", [0.0, 0.5, 1.0])
-def test_tiled_gather_order_equals_plain(bt, t_frac):
+@pytest.mark.parametrize("square", [False, True])
+def test_tiled_gather_order_equals_plain(bt, t_frac, square):
     """The tiled gather's order argument: a row's live ids ascend, so
     visiting its tile's distinct ids in ascending order visits its slots in
     slot order (duplicate ids included), and the head's single accumulator
     copied at t_th is rho12 — bit for bit the plain versions, with dead
     slots, empty rows, a zero value inside a row, t_th at 0, inside and at
     D, per-row thresholds, and rows whose ids do not ascend (walked slot by
-    slot)."""
+    slot).  ``square``: the square mode as CS-ICP calls it (1 on the slots
+    with id >= t_th) gives the plain version's sums of v·m² bit for bit and
+    ``repro``'s sparse_sim over the squared means to rounding; at t_th 0
+    the dead id-0 slots at the end of a row are live, so the tile adds each
+    row's head and the walk its id-0 slots after."""
+    if square:
+        _check_square_order(bt, int(t_frac * 300))
+    else:
+        _check_gather_order(bt, int(t_frac * 300))
+
+
+def _check_gather_order(bt: int, t_th: int):
     ids, vals, means, _ = _inputs(20, 13, 300, 37, seed=13)
     vals[2, 0] = 0.0
     ids, vals, means = _t(ids), _t(vals), _t(means)
     rev = ids[5].clone()
     ids[5, :int((vals[5] != 0).sum())] = rev[:int((vals[5] != 0).sum())].flip(0)
     d = 300
-    t_th = int(t_frac * d)
-    _, _, ordered = _tile_plan(ids, vals, d, bt)
-    assert not bool(ordered[5]) and bool(ordered[:5].all())
+    _, _, walk = _tile_plan(ids, vals, d, bt)
+    assert int(walk[5]) == 0 and bool((walk[:5] == 13).all())
     sims, counts = ref.sparse_sim(ids, vals, means, with_counts=True)
     got = _merged_gather(ids, vals, means, d, bt)
     assert torch.equal(got[0], sims) and torch.equal(got[3], counts)
@@ -334,6 +356,29 @@ def test_tiled_gather_order_equals_plain(bt, t_frac):
         got = _merged_gather(ids, vals, means, d, bt, t_th=t_th, thr=thr)
         for g, w in zip((got[1], got[2], got[0], got[3]), want):
             assert torch.equal(g, w)
+
+
+def _check_square_order(bt: int, t_th: int):
+    ids, _, means, _ = _inputs(20, 13, 300, 37, seed=15)
+    d = 300
+    ones = (ids >= t_th).astype(np.float32)
+    ti, tv, tm = _t(ids), _t(ones), _t(means)
+    _, _, walk = _tile_plan(ti, tv, d, bt)
+    if t_th == 0:      # every slot live: the head ends at the last id != 0
+        nz = ids != 0
+        last = np.where(nz.any(axis=1), 12 - np.argmax(nz[:, ::-1], axis=1),
+                        -1)
+        want = np.where(last + 1 < 13, last + 1, 13)
+        assert torch.equal(walk, _t(want.astype(np.int64)))
+        assert (want < 13).any() and (want > 0).any()
+    else:
+        assert bool((walk == 13).all())
+    want = ref.sparse_sim(ti, tv, tm, square=True)[0]
+    got = _merged_gather(ti, tv, tm, d, bt, square=True)
+    assert torch.equal(got[0], want)
+    np.testing.assert_allclose(
+        want.numpy(), np.asarray(jref.sparse_sim(ids, ones, means * means)),
+        rtol=1e-5, atol=1e-6)
 
 
 def test_ops_dispatch_cpu_to_plain_versions():
