@@ -18,7 +18,11 @@ each of which fails the run on any error:
              esicp_gather (rho12, y, sims, counts), sparse_sim (sims,
              counts) and esicp_filter are held bit for bit, and the batch's
              means-row bytes moved to the SMs are printed beside the
-             gathers' bounds.
+             gathers' bounds.  rho_gather runs as the update calls it
+             (each row's first nnz slots), bit for bit against the plain
+             version on the live values and against a second run, with
+             the bound of its live tuples beside the old all-slots one;
+             after phase 8 also on the bounds-esicp fit's labels and means.
              segment_update runs from the term-major layout the corpus
              builds once (its build time and bytes printed), twice and held
              bitwise, and bit for bit against the CPU plain version at
@@ -47,7 +51,9 @@ each of which fails the run on any error:
 8. sketch kernels — sketch_sim, doc_sketch and the gather kernel's
              per-row-threshold (``ta``) and squared-rows variants against
              their plain versions, bit for bit, at B 4096, S 64, K 10,000,
-             D 495,126 on one corpus batch, with the bounds-esicp fit's
+             D 495,126 on one corpus batch (doc_sketch timed back to
+             back and, as its device time, in a CUDA graph beside an
+             empty kernel's launch), with the bounds-esicp fit's
              means, thresholds and ρ_self (v_ta = ρ_self / ||x||_1);
              sketch_sim also on the Region-3 tail sketch (doc tail at t_th
              against ``region3_sketch``), with its no-FMA floor printed
@@ -179,6 +185,39 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     torch.cuda.synchronize()
     calls = max(1, min(50, int(2.0 / max(run(1), 1e-3))))
     return statistics.median(run(calls) for _ in range(reps))
+
+
+def graph_ms(torch, fn, calls: int = 100, reps: int = 5) -> float:
+    """Median device milliseconds per call of ``fn`` with ``calls`` calls
+    captured in one CUDA graph and the graph replayed: no host work runs
+    between the launches, so a kernel shorter than its launch path on the
+    host reads its own time (plus the gap between two graph nodes)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def empty_launch_ms(torch) -> float:
+    """Device time per launch of an empty kernel (``torch.cuda._sleep(0)``
+    spins for no cycles), as :func:`graph_ms` times a kernel: what launch
+    and retirement alone cost."""
+    return graph_ms(torch, lambda: torch.cuda._sleep(0))
 
 
 def bound_ms(n_bytes: float, flops: float, rate: float = FP32_FLOPS):
@@ -345,19 +384,40 @@ def kernel_phase(torch, docs, seed: int):
     means_t = normalized_means(lam, lam)
     del lam
 
-    # rho_gather over the whole corpus.
-    rho = ops.rho_gather(assign, docs.ids, vals_all, means_t)
-    rho_p = ref.rho_gather(assign, docs.ids, vals_all, means_t)
-    err = check_close(torch, "rho_gather", rho, rho_p, 1e-5)
+    # rho_gather over the whole corpus as the update calls it: each row's
+    # first nnz slots (values past nnz may be anything); bit for bit
+    # against the plain version on the live values, and on a second run
+    # (the kernel's centroid order within a bin is free).
+    rho = ops.rho_gather(assign, docs.ids, docs.vals, means_t, nnz=docs.nnz)
+    check_equal(torch, "rho_gather", rho, ref.rho_gather(
+        assign, docs.ids, vals_all, means_t))
+    check_equal(torch, "rho_gather nnz", rho, ref.rho_gather(
+        assign, docs.ids, docs.vals, means_t, nnz=docs.nnz))
+    check_equal(torch, "rho_gather second run", rho, ops.rho_gather(
+        assign, docs.ids, docs.vals, means_t, nnz=docs.nnz))
+    check_equal(torch, "rho_gather without nnz", rho, ops.rho_gather(
+        assign, docs.ids, vals_all, means_t))
     require(bool((rho[::97] == 0).all()), "rho_gather: assign = K must read 0")
+    # The least bytes: each live tuple of a row assigned in [0, K) (8 B)
+    # and its means entry (4 B), assign and ρ of every row, nnz of those.
+    in_k = (assign >= 0) & (assign < k)
+    live_in = int((vals_all != 0)[in_k].sum())
+    n_in = int(in_k.sum())
     rows["rho_gather"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: ops.rho_gather(assign, docs.ids, vals_all,
-                                                 means_t)),
+        max_abs_err=0.0,
+        ms=time_ms(torch, lambda: ops.rho_gather(
+            assign, docs.ids, docs.vals, means_t, nnz=docs.nnz)),
         plain_ms=time_ms(torch, lambda: ref.rho_gather(
             assign, docs.ids, vals_all, means_t), reps=3),
         library_ms=None,
-        bound=bound_ms(n * p * 8 + n * 8 + nnz_all * 4, 2 * nnz_all))
+        bound=bound_ms(live_in * 12 + n * 8 + n_in * 4, 2 * live_in),
+        extra=dict(
+            # The count held before the nnz operand: every slot's tuple.
+            bound_all_slots_ms=bound_ms(n * p * 8 + n * 8 + nnz_all * 4,
+                                        2 * nnz_all)[0],
+            without_nnz_ms=time_ms(torch, lambda: ops.rho_gather(
+                assign, docs.ids, vals_all, means_t)),
+            live_vals_ms=time_ms(torch, docs.live_vals)))
 
     # Thresholds as EstParams picks them for these means.
     params, _ = estimate_params(docs, docs.df, means_t, rho, k=k)
@@ -446,6 +506,22 @@ def kernel_phase(torch, docs, seed: int):
             f"{r['max_abs_err']:.3g}")
     log(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def fitted_rho(torch, docs, model, row) -> None:
+    """rho_gather on a fitted state (the bounds-esicp fit's labels and
+    means), the inputs the update gives it: bit for bit against the plain
+    version, its time kept in the row as ``fitted_ms``."""
+    from repro_torch.kernels import ops, ref
+
+    args = (model.labels, docs.ids, docs.vals, model.index.means_t)
+    got = ops.rho_gather(*args, nnz=docs.nnz)
+    check_equal(torch, "rho_gather (fitted)", got,
+                ref.rho_gather(*args, nnz=docs.nnz))
+    row["extra"]["fitted_ms"] = time_ms(
+        torch, lambda: ops.rho_gather(*args, nnz=docs.nnz))
+    log(f"  rho_gather on the bounds-esicp fit's state: "
+        f"{row['extra']['fitted_ms']:.4f} ms, bitwise equal to plain")
 
 
 def tile_distinct(torch, ids, live, d: int, bt: int) -> int:
@@ -748,13 +824,21 @@ def sketch_kernel_phase(torch, docs, model):
     dsk = ops.doc_sketch(b_ids, b_vals, d, s_dim)
     check_equal(torch, "doc_sketch", dsk,
                 ref.doc_sketch(b_ids, b_vals, d, s_dim))
+    # The wrapper's host path is longer than the kernel, so back-to-back
+    # calls (ms, as the fits make them) time the host; graph_ms is the
+    # kernel's device time, empty_launch_ms an empty kernel's, both timed
+    # in a CUDA graph.
     rows["doc_sketch"] = dict(
         max_abs_err=0.0,
         ms=time_ms(torch, lambda: ops.doc_sketch(b_ids, b_vals, d, s_dim)),
         plain_ms=time_ms(torch, lambda: ref.doc_sketch(b_ids, b_vals, d,
                                                        s_dim), reps=3),
         library_ms=None,
-        bound=bound_ms(BATCH * p * 8 + BATCH * s_dim * 4, 2 * b_nnz))
+        bound=bound_ms(BATCH * p * 8 + BATCH * s_dim * 4, 2 * b_nnz),
+        extra=dict(
+            graph_ms=graph_ms(torch, lambda: ops.doc_sketch(b_ids, b_vals, d,
+                                                            s_dim)),
+            empty_launch_ms=empty_launch_ms(torch)))
 
     # sketch_sim: the sketch gate's product, and a pair count (0/1 operands).
     sk_t = index.sketch_t
@@ -1269,6 +1353,7 @@ def main() -> int:
             del model
             torch.cuda.empty_cache()
     rows.update(sketch_kernel_phase(torch, docs, model))
+    fitted_rho(torch, docs, model, rows["rho_gather"])
     del model
     for name, (count, algo) in variant_launches.items():
         launches[name] = count

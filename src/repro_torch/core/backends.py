@@ -110,6 +110,8 @@ class KernelBackend:
         assignments outside [0, K) contribute nothing."""
         return ops.segment_update(assign, docs, k=k)
 
-    def self_sims(self, ids, vals, assign, means_t):
-        """(B,) ρ against each object's own centroid (0 outside [0, K))."""
-        return ops.rho_gather(assign, ids, vals, means_t)
+    def self_sims(self, docs, assign, means_t):
+        """(B,) ρ of ``docs``' live tuples against each object's own
+        centroid (0 outside [0, K))."""
+        return ops.rho_gather(assign, docs.ids, docs.vals, means_t,
+                              nnz=docs.nnz)

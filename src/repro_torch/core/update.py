@@ -129,12 +129,11 @@ def update_step(docs: SparseDocs, assign: torch.Tensor,
     ``ub`` is the assignment step's refreshed bound (None keeps the
     previous state's); either way it is loosened by this update's drift.
     """
-    vals = docs.live_vals()
     lam_t = backend.accumulate_means(docs, assign, k=k)
     means_t = normalized_means(lam_t, prev_state.index.means_t)
     index = build_mean_index(means_t, params,
                              moving=moving_flags(assign, prev_assign, k))
-    rho_self = backend.self_sims(docs.ids, vals, assign, means_t)
+    rho_self = backend.self_sims(docs, assign, means_t)
     ub = prev_state.ub if ub is None else ub
     delta = group_drift(means_t, prev_state.index.means_t)
     return KMeansState(index=index, assign=assign, rho_self=rho_self,

@@ -32,11 +32,23 @@
 // S or K not a multiple of 4, or an unaligned operand, take plain loads
 // into the same layout (S padded to a multiple of 4 with zeros).
 //
-// doc_sketch: one warp per document.  Lane l owns slots l and l + 32.  The
-// warp reads the row's tuples 32 at a time (one coalesced load per lane) and
-// broadcasts them by shuffle in p order; the lane whose slot is
-// clip(id / g, 0, S-1) adds v*v.  Dead slots (v = 0) add nothing.  No
-// atomics, so the sums are in p order on every run, as in the plain version.
+// doc_sketch: a block of 128 threads takes 16 consecutive documents (their
+// tuples are one contiguous range) with 8 threads per document; thread
+// (r, q) owns the slots [q*w, (q+1)*w) of document r, w = ceil(S/8).  The
+// rows are walked in chunks of 128 slots, copied into shared memory by
+// cp.async two chunks deep, so the next chunk's copy runs under this one's
+// work.  A warp converts four of the chunk's rows: each tuple's slot is
+// computed once, clip(id / g, 0, S-1) with a multiply-high reciprocal of g
+// (exact for every id < 2^31; kernels/sketch_sim.py:group_reciprocal), and
+// stored with v*v in place, slot -1 for a dead tuple (v = 0).  Each thread
+// then walks its document's chunk in p order up to the row's last live
+// tuple, eight tuples read at a time: the running sum of the own slot it
+// touched last stays in a register and trades places with shared memory
+// when another own slot comes up, and a tuple of no own slot adds +0,
+// which changes no bit.  So each slot adds its rounded squares in p order
+// from +0, as the plain version does, whatever the order of the ids, with
+// no branch on the data and no atomics in a sum.  The block's (16, S)
+// output rows are contiguous and are stored whole from shared memory.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,7 +57,6 @@ namespace {
 
 constexpr int kMaxS = 64;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 // sketch_sim: 128 x 128 output tiles, 16 x 16 threads of 8 x 8 outputs.
 constexpr int kTile = 128;
@@ -237,32 +248,140 @@ sketch_sim_kernel(const float* __restrict__ x, const float* __restrict__ m,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-doc_sketch_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
-                  int B, int P, int g, int S, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (b >= B) return;  // a whole warp leaves together
-  const size_t row = static_cast<size_t>(b) * P;
-  float a0 = 0.0f, a1 = 0.0f;
-  for (int p0 = 0; p0 < P; p0 += 32) {
-    const int p = p0 + lane;
-    const int my_id = p < P ? ids[row + p] : 0;
-    const float my_v = p < P ? vals[row + p] : 0.0f;
-    const int n = min(32, P - p0);
-    for (int j = 0; j < n; ++j) {
-      const int id = __shfl_sync(0xffffffffu, my_id, j);
-      const float v = __shfl_sync(0xffffffffu, my_v, j);
-      if (v == 0.0f) continue;  // dead slot: the same for every lane
-      const int slot = min(max(id / g, 0), S - 1);
-      const float sq = __fmul_rn(v, v);
-      if (slot == lane) a0 = __fadd_rn(a0, sq);
-      if (slot == lane + 32) a1 = __fadd_rn(a1, sq);
-    }
+// doc_sketch: documents per block, threads per document, slots per chunk,
+// slots a thread owns at most.
+constexpr int kDsThreads = 128;
+constexpr int kDsRows = 16;
+constexpr int kDsSplit = kDsThreads / kDsRows;
+constexpr int kDsChunk = 128;
+constexpr int kDsWarps = kDsThreads / 32;
+constexpr int kDsOwn = kMaxS / kDsSplit;
+constexpr int kDsAhead = 8;  // staged tuples a thread reads at once
+// Odd (no bank conflict), with room for the columns read past the last.
+constexpr int kDsStride = kDsChunk + kDsAhead - 1;
+static_assert(kDsChunk == kDsThreads, "a thread copies one column a row");
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// Copy columns p0.. of the block's rows into dst as (id, v) pairs, zeros
+// past P and past B; one cp.async group.
+__device__ __forceinline__ void ds_copy(const int* __restrict__ ids,
+                                        const float* __restrict__ vals,
+                                        int b0, int rows, int P, int p0,
+                                        int2 (*dst)[kDsStride]) {
+  const int p = p0 + static_cast<int>(threadIdx.x);
+#pragma unroll
+  for (int i = 0; i < kDsRows; ++i) {
+    const bool ok = i < rows && p < P;
+    const size_t o = ok ? static_cast<size_t>(b0 + i) * P + p : 0;
+    cp_async4(&dst[i][threadIdx.x].x, ids + o, ok);
+    cp_async4(&dst[i][threadIdx.x].y, vals + o, ok);
   }
-  const size_t o = static_cast<size_t>(b) * S;
-  if (lane < S) out[o + lane] = __fsqrt_rn(a0);
-  if (lane + 32 < S) out[o + lane + 32] = __fsqrt_rn(a1);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__global__ void __launch_bounds__(kDsThreads)
+doc_sketch_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
+                  int B, int P, unsigned magic, int shift, int S,
+                  float* __restrict__ out) {
+  // Two chunks of (id, v), converted in place to (slot, bits of v*v).
+  __shared__ int2 stage[2][kDsRows][kDsStride];
+  __shared__ int last[kDsRows];  // the row's last live column in the chunk
+  __shared__ float sums[kDsOwn][kDsThreads];  // a thread's own slots
+  __shared__ float sketch[kDsRows][kMaxS + 1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.x * kDsRows;
+  const int rows = min(kDsRows, B - b0);
+  const int r = tid % kDsRows, q = tid / kDsRows;
+  const int own = (S + kDsSplit - 1) / kDsSplit;
+  const int lo = q * own;
+  const unsigned cnt = static_cast<unsigned>(max(0, min(own, S - lo)));
+#pragma unroll
+  for (int k = 0; k < kDsOwn; ++k) sums[k][tid] = 0.0f;
+  // The sum of own slot lo + cur, kept in a register while tuples of that
+  // slot come; sums[k][tid] holds the others.
+  int cur = 0;
+  float run = 0.0f;
+  // The columns past the chunk hold dead tuples (no slot) for good.
+  for (int i = tid; i < 2 * kDsRows * (kDsAhead - 1); i += kDsThreads) {
+    const int row = i / (kDsAhead - 1);
+    stage[row / kDsRows][row % kDsRows][kDsChunk + i % (kDsAhead - 1)] =
+        make_int2(-1, 0);
+  }
+
+  const int chunks = (P + kDsChunk - 1) / kDsChunk;
+  if (chunks > 0) ds_copy(ids, vals, b0, rows, P, 0, stage[0]);
+  for (int c = 0; c < chunks; ++c) {
+    int2 (*st)[kDsStride] = stage[c & 1];
+    if (c + 1 < chunks) {  // the next chunk's copy runs under this one
+      ds_copy(ids, vals, b0, rows, P, (c + 1) * kDsChunk, stage[(c + 1) & 1]);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+    __syncthreads();  // chunk c is in shared memory
+    // Warp w converts rows w, w + 4, ..., four columns a lane.
+#pragma unroll
+    for (int ii = 0; ii < kDsRows / kDsWarps; ++ii) {
+      const int i = ii * kDsWarps + warp;
+      int seen = -1;
+#pragma unroll
+      for (int u = 0; u < kDsChunk / 32; ++u) {
+        const int j = u * 32 + lane;
+        const int2 t = st[i][j];
+        const float v = __int_as_float(t.y);
+        const int g_of = static_cast<int>(
+            (static_cast<unsigned long long>(static_cast<unsigned>(t.x)) *
+             magic) >> shift);
+        int slot = min(g_of, S - 1);
+        slot = t.x <= 0 ? 0 : slot;
+        slot = v == 0.0f ? -1 : slot;
+        st[i][j] = make_int2(slot, __float_as_int(__fmul_rn(v, v)));
+        seen = slot >= 0 ? j : seen;
+      }
+      seen = __reduce_max_sync(kFull, seen);
+      if (lane == 0) last[i] = seen;
+    }
+    __syncthreads();
+    const int n = last[r];
+    // A tuple of another own slot parks the running sum and takes that
+    // slot's (read before the park: it is another address); tuples of no
+    // own slot add +0, which changes no bit (sums start at +0 and add
+    // squares, so none is ever -0).  No branch on the data.
+    for (int j0 = 0; j0 <= n; j0 += kDsAhead) {
+      int2 t[kDsAhead];  // read before this group parks anything
+#pragma unroll
+      for (int u = 0; u < kDsAhead; ++u) t[u] = st[r][j0 + u];
+#pragma unroll
+      for (int u = 0; u < kDsAhead; ++u) {
+        const unsigned k_of = static_cast<unsigned>(t[u].x - lo);
+        const bool mine = k_of < cnt;  // past n: dead, no slot
+        const int k = mine ? static_cast<int>(k_of) : cur;
+        const float parked = sums[k][tid];
+        if (k != cur) sums[cur][tid] = run;
+        run = k != cur ? parked : run;
+        cur = k;
+        run = __fadd_rn(run, mine ? __int_as_float(t[u].y) : 0.0f);
+      }
+    }
+    __syncthreads();  // every thread is done with this chunk's buffer
+  }
+  sums[cur][tid] = run;
+#pragma unroll
+  for (int k = 0; k < kDsOwn; ++k)
+    if (static_cast<unsigned>(k) < cnt)
+      sketch[r][lo + k] = __fsqrt_rn(sums[k][tid]);
+  __syncthreads();
+  float* o = out + static_cast<size_t>(b0) * S;
+  for (int i = tid; i < rows * S; i += kDsThreads) {
+    const int rr = i / S;
+    o[i] = sketch[rr][i - rr * S];
+  }
 }
 
 bool aligned16(const void* p) {
@@ -309,15 +428,19 @@ extern "C" int sketch_sim_launch(const void* x, const void* m, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+// magic, shift: group_reciprocal(g) of kernels/sketch_sim.py, so that
+// (id * magic) >> shift == id / g for 0 <= id < 2^31.
 extern "C" int doc_sketch_launch(const void* ids, const void* vals, int B,
-                                 int P, int g, int S, void* out,
-                                 void* stream) {
-  if (S < 1 || S > kMaxS || g < 1)
+                                 int P, unsigned magic, int shift, int S,
+                                 void* out, void* stream) {
+  if (S < 1 || S > kMaxS || shift < 0 || shift > 63)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (B + kWarps - 1) / kWarps;
-  doc_sketch_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), static_cast<const float*>(vals), B, P, g,
-      S, static_cast<float*>(out));
+  if (B == 0) return 0;
+  const int blocks = (B + kDsRows - 1) / kDsRows;
+  doc_sketch_kernel<<<blocks, kDsThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ids), static_cast<const float*>(vals), B, P,
+      magic, shift, S, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

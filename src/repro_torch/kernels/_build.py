@@ -141,5 +141,6 @@ def stream_ptr(device) -> int:
 
 ptr = ctypes.c_void_p
 c_int = ctypes.c_int
+c_uint = ctypes.c_uint
 c_float = ctypes.c_float
 c_longlong = ctypes.c_longlong

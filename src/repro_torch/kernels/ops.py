@@ -194,23 +194,39 @@ def segment_update(assign, docs, *, k: int):
     return lam_t
 
 
-def rho_gather(assign, ids, vals, means_t):
-    """(B,) float32 ρ[b] = x_b·μ_{assign_b} (0 outside [0, K))."""
+def rho_gather(assign, ids, vals, means_t, nnz=None):
+    """(B,) float32 ρ[b] = x_b·μ_{assign_b} (0 outside [0, K)).
+
+    ``nnz`` (B,) int32, when given, limits row b to its slots
+    [0, nnz[b]): the same ρ as the values with every slot past nnz set to
+    0 (``SparseDocs.live_vals``), bit for bit, without that pass.
+    """
     _check_tuples(ids, vals)
     _need(assign, "assign", torch.int32, 1)
     _need(means_t, "means_t", torch.float32, 2)
     if assign.shape[0] != ids.shape[0]:
         raise ValueError("assign must have one entry per row")
-    if not _on_cuda(assign, ids, vals, means_t):
+    operands = [("assign", assign), ("ids", ids), ("vals", vals),
+                ("means_t", means_t)]
+    if nnz is not None:
+        _need(nnz, "nnz", torch.int32, 1)
+        if nnz.shape[0] != ids.shape[0]:
+            raise ValueError("nnz must have one entry per row")
+        operands.append(("nnz", nnz))
+    if not _on_cuda(*(t for _, t in operands)):
         PLAIN["rho_gather"] += 1
-        return ref.rho_gather(assign, ids, vals, means_t)
+        return ref.rho_gather(assign, ids, vals, means_t, nnz=nnz)
     from repro_torch.kernels import rho_gather as kern
 
-    _contiguous(("assign", assign), ("ids", ids), ("vals", vals),
-                ("means_t", means_t))
-    out = torch.empty((ids.shape[0],), dtype=torch.float32, device=ids.device)
-    if ids.shape[0]:
-        kern.launch(assign, ids, vals, means_t, means_t.shape[0], out)
+    _contiguous(*operands)
+    b, k = ids.shape[0], means_t.shape[1]
+    out = torch.empty((b,), dtype=torch.float32, device=ids.device)
+    if b:
+        # The counting sort's bins and order, from the caching allocator.
+        scratch = torch.empty((b + k + 1,), dtype=torch.int32,
+                              device=ids.device)
+        kern.launch(assign, ids, vals, nnz, means_t, means_t.shape[0],
+                    scratch, out)
         LAUNCHES["rho_gather"] += 1
     return out
 

@@ -129,10 +129,18 @@ def segment_update(assign, ids, vals, k: int, d: int):
     return lam.view(d, k)
 
 
-def rho_gather(assign, ids, vals, means_t):
-    """(B,) ρ[b] = x_b · μ_{assign_b}; 0 where assign_b lies outside [0, K)."""
+def rho_gather(assign, ids, vals, means_t, nnz=None):
+    """(B,) ρ[b] = x_b · μ_{assign_b}; 0 where assign_b lies outside [0, K).
+
+    With ``nnz`` (B,), row b reads only its slots [0, nnz[b]).  Lane l of
+    a row adds its products at slots l, l+32, ... in turn, then the lanes
+    fold over offsets 16, 8, 4, 2, 1 (the kernel's order)."""
     b, p = ids.shape
     k = means_t.shape[1]
+    if nnz is not None:
+        live = torch.arange(p, device=ids.device) < nnz[:, None]
+        ids = torch.where(live, ids, 0)
+        vals = torch.where(live, vals, 0.0)
     ok = (assign >= 0) & (assign < k)
     col = torch.where(ok, assign, 0).long()
     lanes = -(-p // 32) * 32

@@ -29,7 +29,13 @@ sets the pace (no tensor cores, no TF32).  A warp skips an s whose x is
 zero in all 16 of its rows, exactly (finite mean sketches: ±0 products
 change no bit); that cuts the Region-3 tail product of ``bounds-esicp``
 to its groups at or past t_th.  doc_sketch reads the (B, P) tuples once
-(one warp per document): bytes.
+(14 MB at B 4096, P 429: 0.0045 ms): bytes.  A block stages 16
+documents' tuples in shared memory, each tuple's group computed once by
+a multiply-high reciprocal of g (:func:`group_reciprocal`), and 8
+threads per document add each their own slots in p order; each of them
+reads every tuple of its document, which makes that walk, not the
+copy, the larger part of the kernel's time
+(``scripts/small_kernel_probe.py`` times the parts).
 """
 from __future__ import annotations
 
@@ -45,8 +51,8 @@ _SIG = {
         _build.ptr, _build.ptr, _build.c_int, _build.c_int, _build.c_int,
         _build.ptr, _build.ptr]),
     "doc_sketch_launch": (_build.c_int, [
-        _build.ptr, _build.ptr, _build.c_int, _build.c_int, _build.c_int,
-        _build.c_int, _build.ptr, _build.ptr]),
+        _build.ptr, _build.ptr, _build.c_int, _build.c_int, _build.c_uint,
+        _build.c_int, _build.c_int, _build.ptr, _build.ptr]),
     "sketch_max_rows": (_build.c_int, []),
 }
 
@@ -66,12 +72,28 @@ def launch(sk_docs, sketch_t, out) -> None:
     _build.check(lib, "sketch", rc)
 
 
+def group_reciprocal(g: int) -> tuple[int, int]:
+    """(magic, shift) with (n * magic) >> shift == n // g for every
+    0 <= n < 2**31, magic < 2**32: the doc_sketch kernel's division.
+
+    shift = 31 + ceil(log2 g), magic = ceil(2**shift / g).  Writing
+    n = q·g + r, n·magic / 2**shift = q + (r + n·e / 2**shift) / g with
+    e = magic·g - 2**shift < g <= 2**(shift - 31), so the added fraction
+    stays below (r + 1) / g <= 1.
+    """
+    if not 1 <= g < 2**31:
+        raise ValueError(f"group width {g} must lie in [1, 2**31)")
+    shift = 31 + (g - 1).bit_length()
+    return -(-(1 << shift) // g), shift
+
+
 def launch_doc_sketch(ids, vals, group_width: int, out) -> None:
     """doc_sketch on the current stream; operands are checked by
     kernels/ops."""
     lib = library()
     b, p = ids.shape
-    rc = lib.doc_sketch_launch(ids.data_ptr(), vals.data_ptr(), b, p,
-                               group_width, out.shape[1], out.data_ptr(),
+    magic, shift = group_reciprocal(group_width)
+    rc = lib.doc_sketch_launch(ids.data_ptr(), vals.data_ptr(), b, p, magic,
+                               shift, out.shape[1], out.data_ptr(),
                                _build.stream_ptr(ids.device))
     _build.check(lib, "sketch", rc)

@@ -283,6 +283,99 @@ def test_doc_sketch_equal_plain(dev, d):
     assert float(got[3, s - 1]) > 0 and bool((got[4] == 0).all())
 
 
+def _sketch_rows(b, p, s, order, seed):
+    """(ids, vals, d) for doc_sketch: g = ceil(d / S) with d = S·g - 3;
+    ids at g·t - 1 and g·t, in the last group and past S·g (the clip), 0,
+    2**31 - 1 and negative; dead slots (v = 0) among the live ones; row 0
+    empty, row 1 in one group; rows ascending, shuffled, or with each id
+    twice in a row (both live)."""
+    rng = np.random.default_rng(seed)
+    g = 7737 if s == 64 else 5 + s
+    d = s * g - (3 if s > 3 else 0)
+    edges = np.concatenate([np.arange(1, s + 1) * g - 1, np.arange(s) * g,
+                            [d - 1, s * g, s * g + 5, 2**31 - 1, -1, -7]])
+    ids = np.where(rng.random((b, p)) < 0.3,
+                   rng.choice(edges, (b, p)), rng.integers(0, d, (b, p)))
+    vals = (rng.random((b, p)) + 0.05).astype(np.float32)
+    vals[rng.random((b, p)) < 0.2] = 0.0
+    vals[0] = 0.0
+    if b > 1:
+        ids[1] = g * (s // 2) + rng.integers(0, g, p)
+    if order == "sorted":
+        ids.sort(axis=1)
+    elif order == "duplicates":
+        ids.sort(axis=1)
+        ids[:, 1::2] = ids[:, 0::2][:, :ids[:, 1::2].shape[1]]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    return t(ids.astype(np.int32)), t(vals), d
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "duplicates"])
+@pytest.mark.parametrize("b,p,s", [(1, 5, 1), (33, 31, 7), (33, 100, 37),
+                                   (4097, 429, 64), (33, 429, 64),
+                                   (4097, 40, 7), (33, 300, 1)])
+def test_doc_sketch_rows_equal_plain(dev, b, p, s, order):
+    """B in {1, 33, 4097} (not a multiple of the 16-row block), P below
+    32, not a multiple of 32 and 429 (several 128-slot chunks), S in {1,
+    7, 37, 64}; every case of ``_sketch_rows``: bit for bit against the
+    plain version on the card and on the CPU."""
+    ids, vals, d = _sketch_rows(b, p, s, order, seed=b + p + s)
+    ops.reset_counts()
+    got = ops.doc_sketch(ids.to(dev), vals.to(dev), d, s)
+    assert ops.LAUNCHES["doc_sketch"] == 1 and ops.PLAIN["doc_sketch"] == 0
+    assert got.shape == (b, s)
+    assert torch.equal(got, ref.doc_sketch(ids.to(dev), vals.to(dev), d, s))
+    assert torch.equal(got.cpu(), ref.doc_sketch(ids, vals, d, s))
+    assert bool((got[0] == 0).all())
+    if b > 1 and s > 1:
+        assert int((got[1] != 0).sum()) == 1
+
+
+def _rho_case(shape, case, seed):
+    """``_inputs`` with values and ids past each row's nnz, and the
+    assignment of ``case``: as drawn (-1 and K among them), every document
+    in one centroid, or only every third centroid used."""
+    b, p, d, k = shape
+    ids, vals, means, assign = _inputs(b, p, d, k, seed)
+    nnz = (vals != 0).sum(dim=1, dtype=torch.int32)
+    past = torch.arange(p)[None, :] >= nnz[:, None]
+    gen = torch.Generator().manual_seed(seed)
+    d_vals = torch.where(past, torch.rand((b, p), generator=gen) + 0.5, vals)
+    d_ids = torch.where(past, torch.randint(0, d, (b, p), generator=gen,
+                                            dtype=torch.int32), ids)
+    if case == "one_centroid":
+        assign = torch.full_like(assign, k // 2)
+    elif case == "empty_centroids":
+        assign = (assign % max(k // 3, 1)) * 3
+        assign[::5] = k
+        assign[1::7] = -1
+    return d_ids, d_vals, nnz, means, assign, torch.where(past, 0.0, vals)
+
+
+@pytest.mark.parametrize("case", ["drawn", "one_centroid", "empty_centroids"])
+@pytest.mark.parametrize("shape", SHAPES + [(1, 3, 20, 4), (20_001, 40,
+                                                            3000, 700)])
+def test_rho_gather_nnz_equal_plain(dev, shape, case):
+    """Rows limited by ``nnz``, with nonzero values and other ids past it:
+    the live-values call's bits, the plain version's on the card and on
+    the CPU, and the same bits on a second run (the centroid order within
+    a bin is free); B not a multiple of the 8-document block."""
+    ids, vals, nnz, means, assign, live = _rho_case(shape, case, seed=16)
+    g = [x.to(dev) for x in (assign, ids, vals, means)]
+    n_dev = nnz.to(dev)
+    ops.reset_counts()
+    got = ops.rho_gather(*g, nnz=n_dev)
+    again = ops.rho_gather(*g, nnz=n_dev)
+    assert ops.LAUNCHES["rho_gather"] == 2 and ops.PLAIN["rho_gather"] == 0
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref.rho_gather(*g, nnz=n_dev))
+    assert torch.equal(got, ops.rho_gather(g[0], g[1], live.to(dev), g[3]))
+    assert torch.equal(got.cpu(), ref.rho_gather(assign, ids, vals, means,
+                                                 nnz=nnz))
+    out = (assign < 0) | (assign >= shape[3])
+    assert bool((got.cpu()[out] == 0).all())
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_ta_gather_variant_equal_plain(dev, shape):
     """A different v_ta on every row, v_ta = 0 on some rows."""

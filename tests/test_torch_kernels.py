@@ -146,6 +146,60 @@ def test_rho_gather_plain_matches_repro(shape):
                                atol=1e-5)
 
 
+def _dirty(ids, vals, seed):
+    """(ids, vals, nnz) with nonzero values and other ids past each row's
+    nnz: what a row of ``_inputs`` holds in its live slots, garbage
+    after."""
+    rng = np.random.default_rng(seed)
+    nnz = (vals != 0).sum(axis=1).astype(np.int32)
+    past = np.arange(ids.shape[1])[None, :] >= nnz[:, None]
+    d_ids = np.where(past, rng.integers(0, ids.max() + 1, ids.shape),
+                     ids).astype(np.int32)
+    d_vals = np.where(past, rng.random(vals.shape) + 0.5,
+                      vals).astype(np.float32)
+    return d_ids, d_vals, nnz
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_rho_gather_nnz_equals_live_vals(shape):
+    """With ``nnz`` the plain version reads only each row's first nnz
+    slots: the bits of the call on the live values (``live_vals``, what
+    the update passed before), whatever lies past nnz, and repro's ρ
+    within 1e-5."""
+    ids, vals, means, assign = _inputs(*shape, seed=13)
+    d_ids, d_vals, nnz = _dirty(ids, vals, seed=14)
+    docs = SparseDocs(_t(d_ids), _t(d_vals), _t(nnz), shape[2])
+    assert not torch.equal(docs.live_vals(), docs.vals)
+    got = ref.rho_gather(_t(assign), docs.ids, docs.vals, _t(means),
+                         nnz=docs.nnz)
+    want = ref.rho_gather(_t(assign), _t(ids), docs.live_vals(), _t(means))
+    assert torch.equal(got, want)
+    assert not torch.equal(got, ref.rho_gather(_t(assign), docs.ids,
+                                               docs.vals, _t(means)))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.rho_gather(assign, ids, vals, means)),
+        rtol=1e-5, atol=1e-5)
+    ops.reset_counts()
+    assert torch.equal(ops.rho_gather(_t(assign), docs.ids, docs.vals,
+                                      _t(means), nnz=docs.nnz), got)
+    assert ops.PLAIN["rho_gather"] == 1 and ops.LAUNCHES["rho_gather"] == 0
+    ops.reset_counts()
+
+
+@pytest.mark.parametrize("bad,err,match", [
+    (lambda n: n.long(), TypeError, "nnz must be"),
+    (lambda n: n[:-1], ValueError, "one entry per row"),
+    (lambda n: n[:, None], ValueError, "nnz must have 1 dims"),
+    (lambda n: torch.empty(n.shape, dtype=n.dtype, device="meta"),
+     ValueError, "several devices")])
+def test_rho_gather_rejects_bad_nnz(bad, err, match):
+    ids, vals, means, assign = _inputs(8, 4, 30, 5, seed=15)
+    nnz = _t((vals != 0).sum(axis=1).astype(np.int32))
+    with pytest.raises(err, match=match):
+        ops.rho_gather(_t(assign), _t(ids), _t(vals), _t(means),
+                       nnz=bad(nnz))
+
+
 def test_segment_update_sums_in_row_order():
     """λ is repro's scatter bit for bit: each entry sums its rows in order."""
     ids, vals, _, assign = _inputs(64, 10, 50, 6, seed=6)

@@ -89,6 +89,48 @@ def test_doc_sketch_plain_matches_repro(d):
     assert (got.numpy()[0] == 0).all()               # the empty row
 
 
+@pytest.mark.parametrize("order", ["unsorted", "duplicates"])
+@pytest.mark.parametrize("d", [300, 4097])
+def test_doc_sketch_plain_unordered_rows_match_repro(order, d):
+    """Rows whose ids do not ascend, or repeat (both copies live), and a
+    row whose tuples all fall in one group: repro's segment_sum sketch."""
+    ids, vals, _, _ = _corpus(33, 21, d, 2, seed=d + 1)
+    rng = np.random.default_rng(d)
+    for i in range(2, 33):
+        if order == "unsorted":
+            perm = rng.permutation(21)
+            ids[i], vals[i] = ids[i, perm], vals[i, perm]
+        else:
+            ids[i, 1::2] = ids[i, 0::2][:ids[i, 1::2].shape[0]]
+    g = tmi.sketch_group_width(d)
+    ids[2] = g + rng.integers(0, g, 21)           # one group
+    vals[2] = rng.random(21) + 0.05
+    want = np.asarray(jmi.doc_sketch(jnp.asarray(ids), jnp.asarray(vals), d))
+    got = ref.doc_sketch(_t(ids), _t(vals), d, tmi.sketch_size(d))
+    _close(got, want)
+    assert (got.numpy()[2] != 0).sum() == 1
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 7, 64, 7737, 7738, 65_537,
+                               2**30 - 1, 2**30 + 1, 2**31 - 1])
+def test_group_reciprocal_equals_division(g):
+    """The doc_sketch kernel's (id * magic) >> shift is id // g for ids
+    at and beside every group edge (sampled for narrow groups), 0 and
+    2**31 - 1; magic fits 32 bits, so the product fits 64."""
+    from repro_torch.kernels.sketch_sim import group_reciprocal
+
+    magic, shift = group_reciprocal(g)
+    assert 0 < magic < 2**32 and 31 <= shift <= 62
+    n_edges = (2**31 - 1) // g + 1
+    q = np.unique(np.linspace(0, n_edges, min(n_edges, 300_000) + 1,
+                              dtype=np.uint64))
+    n = np.concatenate([q * g, q * g + g - 1, q * g + 1,
+                        np.array([0, 2**31 - 1], np.uint64)])
+    n = n[n < 2**31]
+    np.testing.assert_array_equal((n * np.uint64(magic)) >> np.uint64(shift),
+                                  n // np.uint64(g))
+
+
 @pytest.mark.parametrize("b,s,k", [(37, 61, 1), (129, 23, 300), (5, 64, 7)])
 def test_sketch_sim_plain_matches_repro_interpret(b, s, k):
     rng = np.random.default_rng(b + s + k)
