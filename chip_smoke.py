@@ -61,10 +61,43 @@ each of which fails the run on any error:
              whose ids do not ascend), with its tail slots, distinct tail
              rows and means-row bytes moved printed.
 
+Then the out-of-core plane, the resident corpus moved off the card:
+
+9. streaming — the corpus written to a disk ``DocStore`` (chunks of
+             32,768 rows, in a temporary directory, free space checked
+             first, deleted at the end) and reopened memmapped;
+             ``streaming_fit`` (esicp, the main fit's seed rows), counters
+             zeroed just before and read just after: the assignment after
+             every iteration, ρ_self, the final means and every history
+             field but ``elapsed_s`` equal phase 5's resident fit bit for
+             bit; esicp_gather, esicp_filter, segment_update (with and
+             without ``init``) and rho_gather launched, no plain version.
+             Per-iteration seconds beside the resident's, the fit's own
+             seconds by pass, the peak, the prefetch's unhidden waits, a
+             bare copy pass over the store, a chunk's term-major layout
+             build;
+             segment_update's ``init`` variant against its plain version
+             (bitwise against the CPU one at 20,000 documents x K 1,000);
+             ``classify_docs`` over the store equal to the resident
+             classify, ``transform_docs`` over a one-chunk store of the
+             first 4,096 rows equal to the resident sims, ``cps_curve``,
+             ``mean_value_skew`` and NMI(streaming, resident) = 1;
+10. minibatch — two passes of ``algo_mode="minibatch"`` over the store:
+             the objective must not fall, the peak stay below four (D, K)
+             matrices, and only sparse_sim, segment_update and rho_gather
+             launch;
+11. small store — phase 4's nine-mode card fits again through an
+             in-memory store of 4 chunks (identical fits), a mid-epoch
+             checkpoint resume (identical labels), and a model saved on
+             the card and loaded back (identical predictions).  At the NYT
+             widths a streaming checkpoint holds λ, the running means and
+             the means (≈ 59 GB) and a model 19.8 GB, so these run here
+             only.
+
 Then, with the clustering phases' memory freed, the LM serving path
 (gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``):
 
-9. lm kernels — flash_attention against its plain version at the
+12. lm kernels — flash_attention against its plain version at the
              model's shapes (BH 8, S 4096, hd 256, window 512 and -1,
              unit-normal inputs), at (3, 200, 136, 64) window 48 (rows
              with no live key), max abs err ≤ 2e-5, and at (2, 1024, 256)
@@ -74,12 +107,12 @@ Then, with the clustering phases' memory freed, the LM serving path
              and two bounds (split-TF32 on the tensor cores, fp32 on the
              CUDA cores); each instantiation's registers, spills (none
              allowed), shared memory and blocks an SM;
-10. lm small — the gemma3 smoke config, parameters made on the CPU from
+13. lm small — the gemma3 smoke config, parameters made on the CPU from
              ``--seed`` and carried to the card, float32 compute on both:
              prefill logits within 1e-4 and identical greedy tokens from
              ``ServeLoop.generate`` (B 2, prompt 8, 16 new); on the card
              the kernel launched and no plain version ran;
-11. lm main — gemma3-1b at full width, seeded weights on the card, bf16
+14. lm main — gemma3-1b at full width, seeded weights on the card, bf16
              compute: ``make_prefill_fn`` on ``--lm-batch`` × ``--lm-seq``
              tokens (default 2 × 4096) with exactly one kernel launch per
              layer (26) and no plain call, finite logits; the same prefill
@@ -97,9 +130,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -118,6 +154,7 @@ NYT_VOCAB = 495_126
 NYT_NT_MEAN = 225.76
 NYT_K = 10_000
 BATCH = 4096
+STREAM_CHUNK = 32_768
 
 REPLACES = {
     "esicp_gather": "src/repro/kernels/esicp_gather.py:91",
@@ -132,6 +169,7 @@ REPLACES = {
     "doc_sketch": "src/repro/kernels/sketch_sim.py:25",
     "sketch_sim": "src/repro/kernels/sketch_sim.py:25",
     "flash_attention": "src/repro/kernels/flash_attention.py:66",
+    "segment_update_init": "src/repro/kernels/segment_update.py:61",
 }
 SOURCES = {
     "esicp_gather": "src/repro_torch/csrc/gather.cu",
@@ -144,6 +182,7 @@ SOURCES = {
     "doc_sketch": "src/repro_torch/csrc/sketch.cu",
     "sketch_sim": "src/repro_torch/csrc/sketch.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "segment_update_init": "src/repro_torch/csrc/segment_update.cu",
 }
 # The kernels each main-path run must launch.
 PATH_KERNELS = {
@@ -153,6 +192,9 @@ PATH_KERNELS = {
                "rho_gather"),
     "bounds-esicp": ("esicp_gather", "esicp_filter", "doc_sketch",
                      "sketch_sim", "segment_update", "rho_gather"),
+    "streaming": ("esicp_gather", "esicp_filter", "segment_update",
+                  "segment_update_init", "rho_gather"),
+    "minibatch": ("sparse_sim", "segment_update", "rho_gather"),
 }
 INTS = ("mult", "n_candidates", "n_changed", "n_moving", "t_th")
 
@@ -603,7 +645,7 @@ def small_phase(torch, seed: int, small_iter: int):
     k = 32
     rows = draw_seed_rows(docs.n_docs, k, seed=seed)
     variant_launches = {}
-    fits = {}
+    fits, card_fits = {}, {}
     for algo in ["esicp"] + [a for a in ALGORITHMS if a != "esicp"]:
         runs = {}
         for dev in ("cuda", "cpu"):
@@ -619,7 +661,7 @@ def small_phase(torch, seed: int, small_iter: int):
                         variant_launches[name] = (ops.LAUNCHES[name], algo)
         a, b = runs["cuda"], runs["cpu"]
         _same_fits(torch, a, b, algo)
-        fits[algo] = b
+        fits[algo], card_fits[algo] = b, a
         if algo == "esicp":
             for r, (ha, hb) in enumerate(zip(a.history, b.history)):
                 log(f"  esicp iter {r+1}: mult {ha['mult']} changed "
@@ -648,7 +690,9 @@ def small_phase(torch, seed: int, small_iter: int):
     log(f"nine modes identical cuda vs cpu and equal to mivi; classify "
         f"identical ({time.perf_counter() - t0:.1f} s); variant launches "
         f"{variant_launches}")
-    return variant_launches
+    small = dict(docs=docs, df=df, rows=rows, fits=card_fits, model=model,
+                 small_iter=small_iter)
+    return variant_launches, small
 
 
 def main_phase(torch, docs, df, max_iter: int):
@@ -700,7 +744,7 @@ def main_phase(torch, docs, df, max_iter: int):
     require(bool((sims >= model.rho_self - 1e-5).all()),
             "classify scored a doc below its own-centroid similarity")
     log(f"main path done in {time.perf_counter() - t0:.1f} s")
-    return launches, model
+    return launches, model, (labels, sims)
 
 
 def breakdown_phase(torch, docs, df, model, algo: str = "esicp",
@@ -955,6 +999,354 @@ def sketch_kernel_phase(torch, docs, model):
             f"{r['library_ms']}{extra_text(r)}) bitwise equal to plain")
     log(f"sketch kernel checks passed in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def _same_history(a, b, what: str) -> None:
+    """Every history field but elapsed_s, iteration by iteration."""
+    require(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} iterations")
+    for r, (ha, hb) in enumerate(zip(a, b)):
+        strip = lambda h: {f: v for f, v in h.items() if f != "elapsed_s"}
+        require(strip(ha) == strip(hb), f"{what}: history differs at "
+                f"iteration {r + 1}: {ha} vs {hb}")
+
+
+def _same_means(torch, got, want_host, what: str) -> None:
+    """(D, K) means on the card bit for bit against a host copy, row chunk
+    by row chunk."""
+    from repro_torch.core.meanindex import row_chunks
+
+    for s, e in row_chunks(*got.shape):
+        require(torch.equal(got[s:e], want_host[s:e].to(got.device)),
+                f"{what}: means differ in rows [{s}, {e})")
+
+
+def resident_record(torch, model, cls) -> dict:
+    """What the streaming phase holds its fit to, on the host: phase 5's
+    trajectory, history, ρ_self, means, classify labels and sims."""
+    t = time.perf_counter()
+    rec = dict(traj=model.trajectory, history=model.history,
+               rho=model.rho_self.cpu(), means=model.index.means_t.cpu(),
+               labels=cls[0].cpu(), sims=cls[1].cpu())
+    log(f"  resident fit kept on the host for the streaming phase "
+        f"({time.perf_counter() - t:.1f} s)")
+    return rec
+
+
+def write_store(docs_h, tmp: str):
+    """The corpus as a disk DocStore under ``tmp``, reopened memmapped;
+    fails up front when the disk cannot hold it."""
+    from repro_torch.sparse.store import DocStore
+
+    # Below 4 chunks of STREAM_CHUNK rows (a cut run), chunks of a multiple
+    # of 2048 rows that make at least 4, so the accumulating launch runs.
+    n = docs_h.n_docs
+    chunk = (STREAM_CHUNK if n >= 4 * STREAM_CHUNK
+             else max(2048, -(-n // 4) // 2048 * 2048))
+    mem = DocStore.from_docs(docs_h, chunk_size=chunk)
+    free = shutil.disk_usage(tmp).free
+    require(free > 2 * mem.nbytes + (1 << 30),
+            f"{tmp} has {free} bytes free; the {mem.n_chunks}-chunk store "
+            f"needs {mem.nbytes} (twice that plus 1 GiB asked)")
+    t = time.perf_counter()
+    store = mem.save(tmp)
+    on_disk = sum(os.path.getsize(os.path.join(tmp, f))
+                  for f in os.listdir(tmp))
+    log(f"  disk store: {store.n_docs} documents in {store.n_chunks} chunks "
+        f"of {chunk} rows ({store.n_rows - store.n_docs} dead tail "
+        f"rows), {on_disk} bytes ({on_disk / 1e9:.3f} GB) written in "
+        f"{time.perf_counter() - t:.1f} s; {free / 1e9:.1f} GB were free")
+    return store
+
+
+def init_kernel_row(torch, store, assign, means_t) -> dict:
+    """segment_update's accumulating launch on a store chunk with the
+    fitted labels, onto a copy of the fitted means: against its plain
+    version on the card (1e-4: index_add_ there uses atomics) and bit for
+    bit against the CPU plain version at 20,000 documents x K 1,000."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.sparse.matrix import SparseDocs
+
+    d, k = means_t.shape
+    c0 = store.chunk(0, device="cuda").slice_rows(0, store.n_valid(0))
+    a0 = assign[:c0.n_docs].contiguous()
+    live = c0.live_vals()
+    lam = means_t.clone()
+    got = ops.segment_update(a0, c0, k=k, init=lam)
+    want = ref.segment_update(a0, c0.ids, live, k, d, init=means_t.clone())
+    ok, err, _ = chunked_compare(torch, got, want, 1e-4)
+    require(ok, f"segment_update init: max abs err {err} above 1e-4")
+    del want
+    ms = time_ms(torch, lambda: ops.segment_update(a0, c0, k=k, init=lam))
+    plain_ms = time_ms(torch, lambda: ref.segment_update(
+        a0, c0.ids, live, k, d, init=lam), reps=3)
+    sel = ((a0 >= 0) & (a0 < k))[:, None] & (live != 0)
+    flat = (c0.ids.long() * k + a0.long()[:, None])[sel]
+    fvals = live[sel]
+    lib_ms = time_ms(torch, lambda: lam.view(-1).index_add_(0, flat, fvals),
+                     reps=3)
+    touched = int(torch.unique(c0.ids[sel]).numel())
+    cells = int(torch.unique(flat).numel())
+    n_live = int(sel.sum())
+    del lam, flat, fvals
+    torch.cuda.empty_cache()
+
+    n_h, k_h = 20_000, 1_000
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    h_docs = SparseDocs(c0.ids[:n_h].contiguous(), c0.vals[:n_h].contiguous(),
+                        c0.nnz[:n_h].contiguous(), d)
+    h_assign = torch.randint(0, k_h, (n_h,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+    h_assign[::97] = k_h
+    h_init = torch.randn((d, k_h), generator=gen, device="cuda")
+    got = ops.segment_update(h_assign, h_docs, k=k_h,
+                             init=h_init.clone()).cpu()
+    want = ref.segment_update(h_assign.cpu(), h_docs.ids.cpu(),
+                              h_docs.live_vals().cpu(), k_h, d,
+                              init=h_init.cpu())
+    require(torch.equal(got, want), "segment_update init: differs from the "
+            f"CPU plain version at {n_h} documents, K {k_h}")
+    del got, want, h_init
+    log(f"  segment_update init: chunk of {c0.n_docs} documents, {n_live} "
+        f"live tuples over {touched} touched terms and {cells} touched "
+        f"(term, cluster) cells; bitwise equal to the CPU plain version at "
+        f"{n_h} documents x K {k_h}")
+    return dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        # the function's bytes: the chunk's postings (id, value) and
+        # assignments read once, each touched (term, cluster) cell read and
+        # written once
+        bound=bound_ms(n_live * 8 + c0.n_docs * 4 + cells * 8, n_live),
+        extra=dict(touched_terms=touched, touched_cells=cells,
+                   chunk_rows=c0.n_docs))
+
+
+def copy_pass_s(torch, store, depth: int) -> float:
+    """Seconds of a bare prefetcher pass over the store, no compute: how
+    fast the host reads chunks and copies them to the card."""
+    from repro_torch.sparse.store import ChunkPrefetcher
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in ChunkPrefetcher(store, depth=depth):
+        pass
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def streaming_phase(torch, store, docs_h, df, resident, max_iter: int):
+    """streaming_fit over the disk store against phase 5's resident fit,
+    then classify, transform and the UC diagnostics over it."""
+    from repro_torch.cluster import classify_docs, transform_docs
+    from repro_torch.core import metrics
+    from repro_torch.core.lloyd import streaming_fit
+    from repro_torch.core.update import draw_seed_rows
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.matrix import term_major
+    from repro_torch.sparse.store import DocStore
+
+    t0 = phase(f"streaming: streaming_fit k={NYT_K} esicp over the disk "
+               f"store, N={store.n_docs}")
+    seed_rows = draw_seed_rows(store.n_docs, NYT_K, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    res = streaming_fit(store, k=NYT_K, algo="esicp", max_iter=max_iter,
+                        batch_size=BATCH, seed_rows=seed_rows, df=df,
+                        device="cuda", keep_trajectory=True)
+    torch.cuda.synchronize()
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    peak = torch.cuda.max_memory_allocated()
+    matrix = store.dim * NYT_K * 4
+    for h in res.history:
+        log("  " + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                               for k, v in h.items()}))
+    log(f"  seconds per iteration: streaming "
+        f"{[round(h['elapsed_s'], 3) for h in res.history]}, resident "
+        f"{[round(h['elapsed_s'], 3) for h in resident['history']]}")
+    log(f"  prefetch, per iteration: host seconds waiting on chunks "
+        f"{[round(w, 4) for w in res.prefetch['wait_s']]}; chunks whose "
+        f"copy was not done when taken {res.prefetch['late']} (of "
+        f"{2 * store.n_chunks}: the assignment and ρ passes; EstParams' pass "
+        f"is not counted)")
+    log(f"  peak device memory: {peak / 2**30:.2f} GiB ({peak / matrix:.3f} "
+        f"(D, K) matrices); allocated before the fit {base / 2**30:.3f} GiB")
+    log(f"  kernel launches: {launches}")
+    log(f"  plain-version calls: {plain}")
+    require(all(launches[n] > 0 for n in PATH_KERNELS["streaming"]),
+            f"streaming: a kernel of its path never launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"streaming: a plain version ran: {plain}")
+    require(res.n_iter == len(resident["traj"]),
+            f"streaming: {res.n_iter} iterations, resident "
+            f"{len(resident['traj'])}")
+    for r, (a, b) in enumerate(zip(res.trajectory, resident["traj"])):
+        require(torch.equal(a, b), f"streaming: assignment differs from "
+                f"the resident fit at iteration {r + 1}")
+    _same_history(res.history, resident["history"], "streaming")
+    require(torch.equal(res.state.rho_self.cpu(), resident["rho"]),
+            "streaming: ρ_self differs from the resident fit")
+    _same_means(torch, res.state.index.means_t, resident["means"],
+                "streaming")
+    log(f"  assignments at all {res.n_iter} iterations, ρ_self, means and "
+        f"history (but elapsed_s) equal the resident fit bit for bit")
+    for r, (p, h) in enumerate(zip(res.passes, res.history), 1):
+        log(f"  iteration {r}, seconds by pass (device timeline): "
+            + ", ".join(f"{name} {sec:.4f}" for name, sec in p.items())
+            + f"; wall {h['elapsed_s']:.4f}")
+    copy_pass_s(torch, store, 2)                         # page cache warm
+    log(f"  a bare copy pass over the store: depth 2 "
+        f"{copy_pass_s(torch, store, 2):.3f} s, depth 4 "
+        f"{copy_pass_s(torch, store, 4):.3f} s")
+
+    c0 = store.chunk(0, device="cuda").slice_rows(0, store.n_valid(0))
+    layout_ms = time_ms(torch, lambda: term_major(c0.ids, c0.live_vals(),
+                                                  d=store.dim), reps=3)
+    log(f"  term-major layout of one {c0.n_docs}-row chunk: "
+        f"{layout_ms:.3f} ms (built per chunk per pass: "
+        f"{store.n_chunks} a plain iteration)")
+    del c0
+    row = init_kernel_row(torch, store, res.assign, res.state.index.means_t)
+    row["extra"]["layout_ms"] = layout_ms
+
+    index = res.state.index
+    t = time.perf_counter()
+    labels, sims = classify_docs(index, store, batch_size=BATCH)
+    torch.cuda.synchronize()
+    cls_s = time.perf_counter() - t
+    require(torch.equal(labels.cpu(), resident["labels"])
+            and torch.equal(sims.cpu(), resident["sims"]),
+            "classify over the store differs from the resident classify")
+    head = docs_h.slice_rows(0, BATCH)
+    got = transform_docs(index, DocStore.from_docs(head), batch_size=BATCH)
+    want = ops.sparse_sim(head.ids.cuda(), head.vals.cuda(),
+                          index.means_t)[0]
+    require(torch.equal(got, want), "transform over the one-chunk store "
+            "differs from the resident sims")
+    del got, want
+    log(f"  classify over the store: {cls_s:.3f} s, equal to the resident "
+        f"classify; transform of the first {BATCH} rows equal to the "
+        f"resident sims")
+    docs_d = docs_h.to("cuda")
+    nr, cps, _ = metrics.cps_curve(docs_d, index.means_t, res.assign)
+    skew = metrics.mean_value_skew(index.means_t)
+    nmi = metrics.nmi(res.assign, resident["traj"][-1])
+    del docs_d
+    require(abs(nmi - 1.0) < 1e-12, f"NMI(streaming, resident) = {nmi}")
+    log(f"  CPS(0.1) {cps[10]:.4f} (PubMed in the paper: ≈ 0.92), CPS(0.2) "
+        f"{cps[20]:.4f}, CPS(0.5) {cps[50]:.4f}; mean_value_skew {skew}; "
+        f"NMI(streaming, resident) {nmi}")
+    log(f"streaming phase done in {time.perf_counter() - t0:.1f} s")
+    return launches, row, seed_rows
+
+
+def minibatch_phase(torch, store, seed_rows):
+    """Two minibatch passes over the disk store at full width."""
+    from repro_torch.core.lloyd import streaming_fit
+    from repro_torch.kernels import ops
+
+    t0 = phase(f"minibatch: 2 passes of algo_mode='minibatch', k={NYT_K}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    res = streaming_fit(store, k=NYT_K, algo_mode="minibatch", max_iter=2,
+                        batch_size=BATCH, seed_rows=seed_rows,
+                        device="cuda")
+    torch.cuda.synchronize()
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    peak = torch.cuda.max_memory_allocated()
+    matrix = store.dim * NYT_K * 4
+    obj = [h["objective"] for h in res.history]
+    log(f"  objective per pass {obj}; changed per pass "
+        f"{[h['n_changed'] for h in res.history]}; seconds per pass "
+        f"{[round(h['elapsed_s'], 3) for h in res.history]}")
+    log(f"  peak device memory: {peak / 2**30:.2f} GiB ({peak / matrix:.3f} "
+        f"(D, K) matrices)")
+    log(f"  kernel launches: {launches}; plain-version calls: {plain}")
+    require(len(obj) == 2 and obj[1] >= obj[0],
+            f"minibatch: the objective fell: {obj}")
+    require(peak < 4 * matrix, f"minibatch: peak {peak} bytes holds a "
+            f"fourth (D, K) matrix")
+    allowed = PATH_KERNELS["minibatch"]
+    require(all(launches[n] > 0 for n in allowed)
+            and all(v == 0 for n, v in launches.items() if n not in allowed),
+            f"minibatch: launches outside {allowed} or missing: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"minibatch: a plain version ran: {plain}")
+    log(f"minibatch phase done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _rewind_to_mid_epoch(ckpt: str, n_chunks: int) -> int:
+    from repro_torch.checkpoint.store import all_steps
+
+    steps = all_steps(ckpt)
+    mid = [s for s in steps if s % (n_chunks + 1) != 0]
+    require(bool(mid), f"no mid-epoch checkpoint under {ckpt}: {steps}")
+    for s in steps:
+        if s > mid[-1]:
+            shutil.rmtree(os.path.join(ckpt, f"step_{s:08d}"))
+    return mid[-1]
+
+
+def small_store_phase(torch, small):
+    """Phase 4's card fits through a 4-chunk in-memory store, a mid-epoch
+    resume and a model save/load, on the card."""
+    from repro_torch.cluster import load_model
+    from repro_torch.core.assignment import ALGORITHMS
+    from repro_torch.core.lloyd import streaming_fit
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.store import DocStore
+
+    t0 = phase("small store: nine modes through a 4-chunk store, resume, "
+               "save/load (card)")
+    docs, df, rows = small["docs"], small["df"], small["rows"]
+    store = DocStore.from_docs(docs, chunk_size=750)
+    require(store.n_chunks == 4, f"{store.n_chunks} chunks")
+    kw = dict(k=32, batch_size=1024, seed_rows=rows, df=df, device="cuda")
+    ops.reset_counts()
+    for algo in ALGORITHMS:
+        want = small["fits"][algo]
+        got = streaming_fit(store, algo=algo, keep_trajectory=True,
+                            max_iter=30 if algo == "esicp"
+                            else small["small_iter"], **kw)
+        _same_fits(torch, got, want, f"store {algo}")
+        _same_history(got.history, want.history, f"store {algo}")
+        require(torch.equal(got.state.rho_self, want.state.rho_self)
+                and torch.equal(got.state.index.means_t,
+                                want.state.index.means_t),
+                f"store {algo}: ρ_self or means differ")
+    torch.cuda.synchronize()
+    require(all(v == 0 for v in ops.PLAIN.values()),
+            f"small store: a plain version ran: {ops.PLAIN}")
+    log(f"  nine modes identical to the resident card fits; launches "
+        f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ck:
+        full = streaming_fit(store, max_iter=30, checkpoint_dir=ck,
+                             checkpoint_every=1, **kw)
+        step = _rewind_to_mid_epoch(ck, store.n_chunks)
+        again = streaming_fit(store, max_iter=30, checkpoint_dir=ck,
+                              resume=True, **kw)
+    require(torch.equal(again.assign, full.assign)
+            and again.n_iter == full.n_iter,
+            "resume from a mid-epoch checkpoint changed the labels")
+    log(f"  resumed from mid-epoch step {step} (epoch "
+        f"{step // (store.n_chunks + 1) + 1}, after chunk "
+        f"{step % (store.n_chunks + 1)}): identical labels over "
+        f"{full.n_iter} iterations")
+    model = small["model"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_model_") as md:
+        model.save(md)
+        back = load_model(md, device="cuda")
+    require(torch.equal(back.index.means_t, model.index.means_t)
+            and torch.equal(back.labels, model.labels)
+            and torch.equal(back.predict(docs), model.predict(docs)),
+            "a model saved on the card and loaded back predicts otherwise")
+    log(f"  model saved and loaded on the card: identical means, labels and "
+        f"predictions")
+    log(f"small store phase done in {time.perf_counter() - t0:.1f} s")
 
 
 def attention_bound(bh: int, sq: int, hd: int, window: int,
@@ -1335,11 +1727,12 @@ def main() -> int:
         f"{int(docs.nnz.sum())} in {time.perf_counter() - t0:.1f} s")
 
     rows = kernel_phase(torch, docs, args.seed)
-    variant_launches = small_phase(torch, args.seed, args.small_iter)
-    launches, model = main_phase(torch, docs, df, args.max_iter)
+    variant_launches, small = small_phase(torch, args.seed, args.small_iter)
+    launches, model, cls = main_phase(torch, docs, df, args.max_iter)
     breakdown_phase(torch, docs, df, model)
     esicp_traj = model.trajectory
-    del model
+    resident = resident_record(torch, model, cls)
+    del model, cls
     torch.cuda.empty_cache()
     paths = {name: ["esicp fit + classify"] for name in PATH_KERNELS["esicp"]}
     for algo in ("sketch", "bounds-esicp"):
@@ -1358,7 +1751,22 @@ def main() -> int:
     for name, (count, algo) in variant_launches.items():
         launches[name] = count
         paths[name] = [f"small cross-check {algo} fit on the card"]
-    del docs, df
+
+    # The out-of-core plane: the corpus leaves the card for a disk store.
+    docs_h = docs.to("cpu")
+    del docs
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        store = write_store(docs_h, tmp)
+        got, rows["segment_update_init"], seed_rows = streaming_phase(
+            torch, store, docs_h, df, resident, args.max_iter)
+        del resident
+        launches["segment_update_init"] = got["segment_update_init"]
+        paths["segment_update_init"] = ["streaming esicp fit"]
+        minibatch_phase(torch, store, seed_rows)
+        del store
+    small_store_phase(torch, small)
+    del docs_h, df, small
     torch.cuda.empty_cache()
 
     rows["flash_attention"] = lm_kernel_phase(torch, args.seed)

@@ -3,31 +3,32 @@
 
     model = repro_torch.cluster.fit(docs, ClusterConfig(k=10_000))
     labels = model.predict(docs)       # == classify_docs(model.index, docs)
+    model.save(path); model = load_model(path)
+
+``docs`` may be resident SparseDocs or a DocStore (the streaming fit).
 """
 from __future__ import annotations
 
-from repro_torch.cluster.classify import classify_docs
+from repro_torch.cluster.classify import classify_docs, transform_docs
 from repro_torch.cluster.config import ClusterConfig
-from repro_torch.cluster.model import FittedModel
-from repro_torch.cluster.strategies import SingleHostStrategy
+from repro_torch.cluster.estimator import SphericalKMeans
+from repro_torch.cluster.model import FittedModel, load_model
+from repro_torch.cluster.strategies import (STRATEGIES, SingleHostStrategy,
+                                            StreamingStrategy,
+                                            resolve_strategy)
 
 
 def fit(docs, config: ClusterConfig, *, df=None, seed_rows=None,
         keep_trajectory: bool = False) -> FittedModel:
-    """(docs, ClusterConfig) -> FittedModel, on ``config.device``.
-
-    ``seed_rows`` optionally names the K documents that seed the centroids;
-    ``keep_trajectory`` keeps the assignment after every iteration (on the
-    host) in ``FittedModel.trajectory``.
-    """
-    res = SingleHostStrategy().fit(docs, config.validate(), df=df,
-                                   seed_rows=seed_rows,
-                                   keep_trajectory=keep_trajectory)
-    return FittedModel(index=res.state.index, labels=res.assign,
-                       rho_self=res.state.rho_self, history=res.history,
-                       converged=res.converged, n_iter=res.n_iter,
-                       algo=config.algo, trajectory=res.trajectory)
+    """(docs, ClusterConfig) -> FittedModel, on ``config.device``, through
+    the estimator.  ``seed_rows`` optionally names the K documents that
+    seed the centroids; ``keep_trajectory`` keeps the assignment after
+    every iteration (on the host) in ``FittedModel.trajectory``."""
+    return SphericalKMeans.from_config(config).fit(
+        docs, df=df, seed_rows=seed_rows,
+        keep_trajectory=keep_trajectory).model_
 
 
-__all__ = ["ClusterConfig", "FittedModel", "SingleHostStrategy",
-           "classify_docs", "fit"]
+__all__ = ["ClusterConfig", "FittedModel", "STRATEGIES", "SingleHostStrategy",
+           "SphericalKMeans", "StreamingStrategy", "classify_docs", "fit",
+           "load_model", "resolve_strategy", "transform_docs"]

@@ -1,6 +1,5 @@
 """Declarative clustering configuration (counterpart of
-``repro.cluster.config``), cut to the fields the single-host path reads,
-plus ``device``."""
+``repro.cluster.config``), with ``device`` in place of ``backend``."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,34 +8,65 @@ from typing import Any
 from repro_torch.core.estparams import EstGrid
 from repro_torch.core.meanindex import StructuralParams
 
+# ROADMAP Queue 1 items of the runtimes the port does not have yet.
+NOT_PORTED = {
+    "mesh": "the mesh runtime (ROADMAP Queue 1 item 7)",
+    "two_level": "two-level IVF (ROADMAP Queue 1 item 5)",
+    "tune": "the autotuner (ROADMAP Queue 1 item 6)",
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
     """k: number of clusters.  algo: 'mivi', 'icp', 'es', 'esicp',
-    'ta-icp', 'cs-icp', 'bounds', 'sketch' or 'bounds-esicp'.  params: 'auto'
-    (EstParams at ``est_iters``), a StructuralParams, or None (trivial).
-    batch_size: rows per assignment batch.  seed: centroid-seeding seed.
+    'ta-icp', 'cs-icp', 'bounds', 'sketch' or 'bounds-esicp'.  algo_mode:
+    'full' (exact Lloyd) or 'minibatch' (Sculley-style updates over store
+    chunks, always on the 'streaming' strategy).  params: 'auto' (EstParams
+    at ``est_iters``), a StructuralParams, or None (trivial).  batch_size:
+    rows per assignment batch.  chunk_size: store chunk rows when the
+    streaming strategy wraps resident documents.  seed: centroid-seeding
+    seed.  checkpoint_dir / checkpoint_every: the streaming fit's resumable
+    snapshots, every N chunks inside an epoch and at every epoch boundary.
     device: 'cuda' (the default; raises without a GPU) or 'cpu' (the plain
-    PyTorch versions of the kernels)."""
+    PyTorch versions of the kernels).  mesh, coarse_k and tune != 'off'
+    name runtimes the port does not have yet: they raise
+    NotImplementedError."""
 
     k: int
     algo: str = "esicp"
     params: Any = "auto"
     batch_size: int = 4096
+    chunk_size: int = 1024
     max_iter: int = 60
     est_grid: EstGrid | None = None
     est_iters: tuple = (1, 2)
     seed: int = 0
+    algo_mode: str = "full"
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 5
     device: str = "cuda"
+    mesh: Any = None
+    coarse_k: int | None = None
+    tune: str = "off"
 
     def __post_init__(self):
         object.__setattr__(self, "est_iters", tuple(self.est_iters))
+
+    @property
+    def strategy(self) -> str:
+        """The execution strategy's name.  A DocStore input also promotes
+        'single_host' to 'streaming' (``resolve_strategy``)."""
+        if self.coarse_k is not None:
+            return "two_level"
+        if self.mesh is not None:
+            return "mesh"
+        return "streaming" if self.algo_mode == "minibatch" else "single_host"
 
     def replace(self, **changes) -> ClusterConfig:
         return dataclasses.replace(self, **changes)
 
     def validate(self) -> ClusterConfig:
-        """Fail fast on a config the single-host path cannot run."""
+        """Fail fast on a config no strategy can run.  Returns self."""
         from repro_torch.core.assignment import ALGORITHMS
 
         if self.k < 1:
@@ -48,6 +78,16 @@ class ClusterConfig:
                 or isinstance(self.params, StructuralParams)):
             raise ValueError("params must be 'auto', None, or a "
                              f"StructuralParams; got {self.params!r}")
-        if self.batch_size < 1 or self.max_iter < 1:
-            raise ValueError("batch_size and max_iter must be >= 1")
+        if self.batch_size < 1 or self.chunk_size < 1 or self.max_iter < 1:
+            raise ValueError("batch_size, chunk_size and max_iter must be "
+                             ">= 1")
+        if self.algo_mode not in ("full", "minibatch"):
+            raise ValueError(f"algo_mode must be 'full' or 'minibatch', "
+                             f"got {self.algo_mode!r}")
+        if self.tune not in ("off", "cached", "search"):
+            raise ValueError(f"tune must be 'off', 'cached' or 'search', "
+                             f"got {self.tune!r}")
+        if self.tune != "off":
+            raise NotImplementedError(
+                f"tune={self.tune!r} needs {NOT_PORTED['tune']}")
         return self

@@ -1,13 +1,19 @@
-"""Execution strategies (counterpart of ``repro.cluster.strategies``):
-this slice ports ``single_host``, the on-device Lloyd fit."""
+"""Execution strategies (counterpart of ``repro.cluster.strategies``).
+
+``single_host`` is the resident Lloyd fit (core/lloyd.py:lloyd_fit);
+``streaming`` the out-of-core fit over a DocStore
+(core/lloyd.py:streaming_fit), selected by a DocStore input or by
+``algo_mode='minibatch'``.  ``mesh`` and ``two_level`` are not ported yet.
+"""
 from __future__ import annotations
 
-from repro_torch.cluster.config import ClusterConfig
-from repro_torch.core.lloyd import LloydResult, lloyd_fit
+from repro_torch.cluster.config import NOT_PORTED, ClusterConfig
+from repro_torch.core.lloyd import LloydResult, lloyd_fit, streaming_fit
+from repro_torch.sparse.store import DocStore, as_store
 
 
 class SingleHostStrategy:
-    """The single-device Lloyd fit (core/lloyd.py)."""
+    """The single-device Lloyd fit over resident documents."""
 
     name = "single_host"
 
@@ -19,3 +25,40 @@ class SingleHostStrategy:
             est_grid=config.est_grid, est_iters=config.est_iters,
             seed=config.seed, seed_rows=seed_rows, df=df,
             device=config.device, keep_trajectory=keep_trajectory)
+
+
+class StreamingStrategy:
+    """The chunked fit over a DocStore; resident documents are wrapped as
+    an in-memory store of ``config.chunk_size`` rows per chunk."""
+
+    name = "streaming"
+
+    def fit(self, docs, config: ClusterConfig, df=None, seed_rows=None,
+            keep_trajectory: bool = False) -> LloydResult:
+        return streaming_fit(
+            as_store(docs, chunk_size=config.chunk_size), k=config.k,
+            algo=config.algo, params=config.params,
+            algo_mode=config.algo_mode, batch_size=config.batch_size,
+            max_iter=config.max_iter, est_grid=config.est_grid,
+            est_iters=config.est_iters, seed=config.seed,
+            seed_rows=seed_rows, df=df,
+            checkpoint_dir=config.checkpoint_dir,
+            checkpoint_every=config.checkpoint_every, device=config.device,
+            keep_trajectory=keep_trajectory)
+
+
+STRATEGIES = {"single_host": SingleHostStrategy(),
+              "streaming": StreamingStrategy()}
+
+
+def resolve_strategy(config: ClusterConfig, docs=None):
+    """(ClusterConfig, optional corpus) -> execution strategy.  A DocStore
+    input promotes 'single_host' to 'streaming'."""
+    config.validate()
+    name = config.strategy
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"the {name!r} strategy needs "
+                                  f"{NOT_PORTED[name]}")
+    if name == "single_host" and isinstance(docs, DocStore):
+        name = "streaming"
+    return STRATEGIES[name]

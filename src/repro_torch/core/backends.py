@@ -105,10 +105,11 @@ class KernelBackend:
         """ES bound (Eq. 4) -> (survivor mask (B, K) bool, |Z_i| (B,) int32)."""
         return ops.esicp_filter(rho12, y, rho_self, col_ok, v_th)
 
-    def accumulate_means(self, docs, assign, *, k: int):
+    def accumulate_means(self, docs, assign, *, k: int, init=None):
         """(D, K) transposed cluster sums λ_t of ``docs``' live tuples;
-        assignments outside [0, K) contribute nothing."""
-        return ops.segment_update(assign, docs, k=k)
+        assignments outside [0, K) contribute nothing.  ``init`` (D, K) is
+        added to in place (a chunked caller's running λ_t)."""
+        return ops.segment_update(assign, docs, k=k, init=init)
 
     def self_sims(self, docs, assign, means_t):
         """(B,) ρ of ``docs``' live tuples against each object's own

@@ -188,3 +188,41 @@ def estimate_params(docs: SparseDocs, df: torch.Tensor,
                             docs.nnz[start:end], dvbar, colsum,
                             rho_self[start:end], s_grid, k=k)
     return _est_minimize(s_grid, v_grid, phi1, phi2, phi3)
+
+
+def estimate_params_store(store, df: torch.Tensor, means_t: torch.Tensor,
+                          rho_self: torch.Tensor, *, k: int,
+                          grid: EstGrid = EstGrid(), prefetch_depth: int = 2):
+    """:func:`estimate_params` over a
+    :class:`repro_torch.sparse.store.DocStore`, the chunks streamed to the
+    means' device.
+
+    rho_self: (store.n_rows,) — the streaming fit's ρ (dead rows 0).  φ̃3
+    sums the real rows only, in the resident estimate's ``grid.chunk``
+    slices of the global row range: a slice that spans two store chunks
+    takes the tail of one and the head of the next.  So the estimate is the
+    resident one bit for bit, whatever the chunk size.
+    """
+    from repro_torch.sparse.store import ChunkPrefetcher
+
+    s_grid, v_grid, phi1, phi2, dvbar, colsum = _est_tables(df, means_t, grid)
+    phi3 = torch.zeros((len(s_grid), len(v_grid)), dtype=torch.float64,
+                       device=means_t.device)
+    c = store.chunk_size
+    carry = None                 # rows of a slice begun in an earlier chunk
+    for ci, cdocs in ChunkPrefetcher(store, depth=prefetch_depth,
+                                     device=means_t.device):
+        m = store.n_valid(ci)
+        part = (cdocs.ids[:m], cdocs.vals[:m], cdocs.nnz[:m],
+                rho_self[ci * c:ci * c + m])
+        if carry is not None:
+            part = tuple(torch.cat([a, b]) for a, b in zip(carry, part))
+        n = part[0].shape[0]
+        full = n - n % grid.chunk if ci < store.n_chunks - 1 else n
+        for start in range(0, full, grid.chunk):
+            end = min(start + grid.chunk, full)
+            phi3 += _phi3_chunk(*(a[start:end] for a in part[:3]), dvbar,
+                                colsum, part[3][start:end], s_grid, k=k)
+        carry = tuple(a[full:] for a in part) if full < n else None
+    return _est_minimize(s_grid, v_grid, phi1, phi2, phi3)
+

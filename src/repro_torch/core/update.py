@@ -17,6 +17,7 @@ import dataclasses
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.meanindex import (MeanIndex, StructuralParams,
                                         build_mean_index, column_dots,
                                         normalized_means)
@@ -164,6 +165,31 @@ def seed_centroids(sel: SparseDocs, k: int) -> torch.Tensor:
     means_t.index_put_((sel.ids.long(), cols), vals, accumulate=True)
     norms = sqrt_rn(column_dots(means_t, means_t))
     return means_t.div_(torch.clamp(norms, min=1e-12))
+
+
+def init_state_from_store(store, k: int, params: StructuralParams, *,
+                          seed: int = 0, seed_rows=None,
+                          device="cuda") -> KMeansState:
+    """:func:`init_state` for a :class:`repro_torch.sparse.store.DocStore`:
+    the same seed rows and centroids (the K rows gathered from their
+    chunks on the host), with per-document arrays over every store row —
+    real rows at ρ_self = -inf and ub = +inf, the dead tail rows at 0."""
+    dev = resolve_device(device)
+    pick = (draw_seed_rows(store.n_docs, k, seed=seed) if seed_rows is None
+            else torch.as_tensor(seed_rows)).long().cpu()
+    if pick.shape != (k,) or torch.unique(pick).numel() != k:
+        raise ValueError(f"seed_rows must hold {k} distinct row indices")
+    sel = store.gather_rows(pick.numpy(), device=dev)
+    index = build_mean_index(seed_centroids(sel, k), params)
+    n_rows = store.n_rows
+    valid = torch.arange(n_rows, device=dev) < store.n_docs
+    rho0 = torch.where(valid, -torch.inf, 0.0)
+    ub = torch.where(valid, torch.inf, 0.0)[:, None].expand(
+        n_rows, n_ub_groups(k)).contiguous()
+    return KMeansState(
+        index=index,
+        assign=torch.zeros((n_rows,), dtype=torch.int32, device=dev),
+        rho_self=rho0, rho_self_prev=rho0.clone(), iteration=0, ub=ub)
 
 
 def init_state(docs: SparseDocs, k: int, params: StructuralParams, *,

@@ -8,8 +8,9 @@ kernel cannot take raises.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN`` counts calls that went to
 a plain version, per kernel; the gather kernel's per-row-threshold and
-squared-rows variants count under their own names (``esicp_gather_ta``,
-``sparse_sim_square``).  A run resets them with :func:`reset_counts`
+squared-rows variants and ``segment_update``'s accumulating one count
+under their own names (``esicp_gather_ta``, ``sparse_sim_square``,
+``segment_update_init``).  A run resets them with :func:`reset_counts`
 and reads them after, to show which path it took.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.kernels import ref
 
 KERNELS = ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
            "sparse_sim", "esicp_gather_ta", "sparse_sim_square", "doc_sketch",
-           "sketch_sim", "flash_attention")
+           "sketch_sim", "flash_attention", "segment_update_init")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN = dict.fromkeys(KERNELS, 0)
 
@@ -165,10 +166,15 @@ def esicp_filter(rho12, y, rho_max, col_ok, v_th):
     return mask, count
 
 
-def segment_update(assign, docs, *, k: int):
+def segment_update(assign, docs, *, k: int, init=None):
     """(D, K) float32 transposed cluster sums λ_t of the live tuples of
     ``docs`` (a :class:`repro_torch.sparse.matrix.SparseDocs`); assignments
     outside [0, K) contribute nothing.
+
+    ``init`` (D, K) float32, contiguous, on the documents' device: the
+    sums are added to it in place and it is returned (counted as
+    ``segment_update_init``).  Chunk after chunk this gives one call's
+    λ_t over all the chunks, bit for bit.
 
     On the card the kernel walks ``docs.by_term``, the term-major layout
     the documents build on first use and keep, so a fit sorts once.
@@ -177,20 +183,31 @@ def segment_update(assign, docs, *, k: int):
     _need(assign, "assign", torch.int32, 1)
     if assign.shape[0] != docs.n_docs:
         raise ValueError("assign must have one entry per row")
-    if not _on_cuda(assign, docs.ids, docs.vals, docs.nnz):
-        PLAIN["segment_update"] += 1
+    operands = [assign, docs.ids, docs.vals, docs.nnz]
+    name = "segment_update"
+    if init is not None:
+        name = "segment_update_init"
+        _need(init, "init", torch.float32, 2)
+        if tuple(init.shape) != (docs.dim, k):
+            raise ValueError(f"init must be ({docs.dim}, {k}), got "
+                             f"{tuple(init.shape)}")
+        if not init.is_contiguous():
+            raise ValueError("init must be contiguous")
+        operands.append(init)
+    if not _on_cuda(*operands):
+        PLAIN[name] += 1
         return ref.segment_update(assign, docs.ids, docs.live_vals(), k,
-                                  docs.dim)
+                                  docs.dim, init=init)
     from repro_torch.kernels import segment_update as kern
 
     _contiguous(("assign", assign))
     # The layout first: its one-off build's transients come before λ_t.
     layout = docs.by_term
-    lam_t = torch.empty((docs.dim, k), dtype=torch.float32,
-                        device=assign.device)
+    lam_t = init if init is not None else torch.empty(
+        (docs.dim, k), dtype=torch.float32, device=assign.device)
     if docs.dim and k:
-        kern.launch(layout, assign, lam_t)
-        LAUNCHES["segment_update"] += 1
+        kern.launch(layout, assign, lam_t, accumulate=init is not None)
+        LAUNCHES[name] += 1
     return lam_t
 
 

@@ -16,7 +16,8 @@ for bit where the kernel's order is fixed:
 * ``doc_sketch`` — every sketch slot sums its tuples' squares in p order;
 * ``sketch_sim`` — every (b, k) output sums its S products in s order;
 * ``esicp_filter`` — elementwise;
-* ``segment_update`` — every λ entry sums its tuples in row order;
+* ``segment_update`` — every λ entry sums its tuples in row order (from
+  +0, or onto ``init``);
 * ``rho_gather`` — lane l of a 32-lane warp sums slots l, l+32, ... and a
   butterfly folds the lanes.
 
@@ -113,14 +114,16 @@ def esicp_filter(rho12, y, rho_max, col_ok, v_th):
     return mask, mask.sum(dim=1, dtype=torch.int32)
 
 
-def segment_update(assign, ids, vals, k: int, d: int):
+def segment_update(assign, ids, vals, k: int, d: int, init=None):
     """(D, K) cluster sums, transposed: λ_t[d, c] = Σ_b [assign_b = c]·x_b[d].
 
     Rows whose assignment lies outside [0, K) are dropped before any
     indexing (``repro``'s scatter drops them silently; ``index_add_``
-    would raise).  Duplicate ids within a row add up.
+    would raise).  Duplicate ids within a row add up.  ``init`` (D, K),
+    contiguous, is added to in place and returned.
     """
-    lam = torch.zeros(d * k, dtype=torch.float32, device=ids.device)
+    lam = (torch.zeros(d * k, dtype=torch.float32, device=ids.device)
+           if init is None else init.view(-1))
     ok = (assign >= 0) & (assign < k)
     for s, e in _row_chunks(ids.shape[0], ids.shape[1]):
         sel = ok[s:e, None] & (vals[s:e] != 0)

@@ -24,6 +24,17 @@ scatter, so the sums are bitwise repeatable and equal to the plain
 version's.  Plain version: :func:`repro_torch.kernels.ref.segment_update`
 (row-major; the CPU never builds the layout).
 
+``init`` (the streaming fit's chunks after the first): λ_t is updated in
+place, and a term with no posting in the chunk is not touched.  A term
+with more postings than an eighth of its tile's columns loads its tile
+from λ_t instead of zeroing it (its postings touch most of the row); every
+other term gets one warp and no tile: the lane that owns a column reads
+λ_t[d, c] from global memory, adds its peers' values in posting order and
+writes the cell back.  So the chunked λ_t is the resident one bit for bit
+(the same additions in the same order), with no third (D, K) matrix for
+an ``init + λ`` sum.  Its bytes: the chunk's postings and assignments
+read, each touched (term, cluster) cell read and written.
+
 What bounds it on the card: bytes.  λ_t is written once (D·K·4 bytes,
 19.8 GB at the NYT widths) against nnz·8 bytes of postings, the gathered
 assignments, ``ptr`` and ``order`` read once.  The TPU kernel's one-hot
@@ -38,17 +49,28 @@ _SIG = {
     "segment_update_launch": (_build.c_int, [
         _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.ptr,
         _build.c_int, _build.c_int, _build.ptr, _build.ptr]),
+    "segment_update_accumulate_launch": (_build.c_int, [
+        _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.ptr,
+        _build.c_int, _build.c_int, _build.c_longlong, _build.ptr,
+        _build.ptr]),
 }
 
 
-def launch(by_term, assign, lam_t) -> None:
+def launch(by_term, assign, lam_t, *, accumulate: bool = False) -> None:
     """Launch on the current stream over a
     :class:`repro_torch.sparse.matrix.TermMajor`; ``lam_t`` (D, K) is
-    written whole."""
+    written whole, or with ``accumulate`` added to in place (the rows of
+    terms with postings only)."""
     lib = _build.load("segment_update", _SIG)
     d, k = lam_t.shape
-    rc = lib.segment_update_launch(
-        by_term.ptr.data_ptr(), by_term.rows.data_ptr(),
-        by_term.vals.data_ptr(), by_term.order.data_ptr(), assign.data_ptr(),
-        d, k, lam_t.data_ptr(), _build.stream_ptr(lam_t.device))
+    args = [by_term.ptr.data_ptr(), by_term.rows.data_ptr(),
+            by_term.vals.data_ptr(), by_term.order.data_ptr(),
+            assign.data_ptr(), d, k]
+    if accumulate:
+        rc = lib.segment_update_accumulate_launch(
+            *args, by_term.rows.numel(), lam_t.data_ptr(),
+            _build.stream_ptr(lam_t.device))
+    else:
+        rc = lib.segment_update_launch(*args, lam_t.data_ptr(),
+                                       _build.stream_ptr(lam_t.device))
     _build.check(lib, "segment_update", rc)

@@ -1,8 +1,13 @@
-"""Padded sparse document rows (counterpart of ``repro.sparse``)."""
+"""Padded sparse document rows and the out-of-core store (counterpart of
+``repro.sparse``)."""
 from repro_torch.sparse.matrix import (SparseDocs, df_counts, from_dense,
-                                       l2_normalize_rows, pad_rows,
+                                       l1_tail, l2_normalize_rows, pad_rows,
                                        remap_terms_by_df, tf_idf, to_dense,
                                        with_df)
+from repro_torch.sparse.store import (ChunkPrefetcher, DocStore,
+                                      DocStoreBuilder, as_store)
 
-__all__ = ["SparseDocs", "df_counts", "from_dense", "l2_normalize_rows",
-           "pad_rows", "remap_terms_by_df", "tf_idf", "to_dense", "with_df"]
+__all__ = ["ChunkPrefetcher", "DocStore", "DocStoreBuilder", "SparseDocs",
+           "as_store", "df_counts", "from_dense", "l1_tail",
+           "l2_normalize_rows", "pad_rows", "remap_terms_by_df", "tf_idf",
+           "to_dense", "with_df"]

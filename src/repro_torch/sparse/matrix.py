@@ -244,3 +244,10 @@ def pad_rows(docs: SparseDocs, multiple: int) -> SparseDocs:
                         device=t.device)])
     return SparseDocs(zpad(docs.ids), zpad(docs.vals), zpad(docs.nnz),
                       docs.dim, docs._df)
+
+
+def l1_tail(docs: SparseDocs, t_th: int) -> torch.Tensor:
+    """(N,) float32 partial L1 norm of each row over its live tuples with
+    term id >= t_th (the paper's initial y)."""
+    tail = (docs.ids >= t_th) & docs.row_mask()
+    return torch.where(tail, docs.vals, 0.0).sum(dim=1)

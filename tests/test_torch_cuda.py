@@ -16,12 +16,15 @@ ascend (the plan's slot-order walk), t_th at 0, inside and at D, every
 tile setting of ``scripts/gather_probe.py``, the square variant at t_th 0
 (each row's head on the tile, its live id-0 slots after it walked); beside them dead slots, empty
 rows, duplicate ids and assignments outside [0, K).  For segment_update K above one
-shared-memory column tile and a term with 12,000 postings; for sketch_sim
+shared-memory column tile and a term with 12,000 postings, and its
+accumulating (``init``) launch chunk after chunk; for sketch_sim
 tiles whose leading s are all zero.  Kernel and plain version add in the
 same order without fused multiply-adds, so they must agree bit for bit;
 the plain segment_update on the card uses atomics (``index_add_``), so λ is
-compared bitwise against the CPU plain version instead.  This file imports
-neither JAX nor ``repro``."""
+compared bitwise against the CPU plain version instead.  Beside the
+kernels: the chunk prefetcher on the card (pinned ring of depth 1 and 3,
+side stream, memory and memmapped stores) and a four-chunk streaming fit
+against the resident fit.  This file imports neither JAX nor ``repro``."""
 import numpy as np
 import pytest
 
@@ -499,3 +502,125 @@ def test_flash_attention_operands_the_kernel_cannot_take_raise(dev):
     odd = torch.zeros((2, 40, 24), device=dev)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention(odd, odd, odd)
+
+
+@pytest.mark.parametrize("shape", SEGMENT_SHAPES)
+def test_segment_update_init_bitwise(dev, shape):
+    """The accumulating launch: bit for bit against the CPU plain version
+    on the same init; the rows of terms without a posting left
+    byte-identical; four chunks, one launch each, equal to one launch over
+    the whole corpus.  The shapes give its terms long posting lists (the
+    tile kernel), short ones (a warp a term) and both in one launch."""
+    from repro_torch.sparse.matrix import SparseDocs
+
+    b, _, d, k = shape
+    ids, vals, _, assign = _inputs(*shape, seed=9)
+    ids = torch.remainder(ids, d - 16)        # the last 16 terms unused
+    if b >= 4096:     # term 0 in every row: a long posting list per chunk
+        ids[:, 0] = 0
+        vals[:, 0] = 0.25
+    nnz = (vals != 0).sum(dim=1, dtype=torch.int32)
+    rng = np.random.default_rng(10)
+    init = torch.from_numpy(rng.standard_normal((d, k)).astype(np.float32))
+    init[0, :1] = -0.0                                  # a signed zero
+    docs = SparseDocs(ids.to(dev), vals.to(dev), nnz.to(dev), d)
+    g = assign.to(dev)
+    ops.reset_counts()
+    got = ops.segment_update(g, docs, k=k, init=init.to(dev))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["segment_update_init"] == 1
+    assert ops.PLAIN["segment_update_init"] == 0
+    want = ref.segment_update(assign, ids, vals, k, d, init=init.clone())
+    assert torch.equal(got.cpu(), want)
+    untouched = ~torch.bincount(ids[vals != 0].long(), minlength=d).bool()
+    assert torch.equal(got.cpu()[untouched].view(torch.int32),
+                       init[untouched].view(torch.int32))
+    assert bool(untouched[-16:].all())
+    # chunk after chunk == one launch over the whole corpus
+    whole = ops.segment_update(g, docs, k=k)
+    lam = None
+    step = -(-b // 4)
+    for s in range(0, b, step):
+        part = docs.slice_rows(s, step)
+        part = SparseDocs(part.ids.contiguous(), part.vals.contiguous(),
+                          part.nnz.contiguous(), d)
+        lam = ops.segment_update(g[s:s + part.n_docs].contiguous(), part,
+                                 k=k, init=lam)
+    torch.cuda.synchronize()
+    assert torch.equal(lam, whole)
+
+
+def test_segment_update_init_operands(dev):
+    from repro_torch.sparse.matrix import SparseDocs
+
+    ids, vals, _, assign = _inputs(9, 5, 50, 3, seed=11)
+    docs = SparseDocs(ids.to(dev), vals.to(dev),
+                      (vals != 0).sum(1, dtype=torch.int32).to(dev), 50)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.segment_update(assign.to(dev), docs, k=3,
+                           init=torch.zeros((50, 3)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.segment_update(assign.to(dev), docs, k=3,
+                           init=torch.zeros((3, 50), device=dev).t())
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_prefetcher_on_card(dev, tmp_path, depth):
+    """Chunks arrive whole and in order through the pinned ring and the
+    side stream, memory and memmapped disk stores alike, while the
+    consumer's kernels run on the current stream."""
+    from repro_torch.sparse.matrix import SparseDocs
+    from repro_torch.sparse.store import ChunkPrefetcher, DocStore
+
+    ids, vals, _, _ = _inputs(1000, 40, 3000, 1, seed=12)
+    nnz = (vals != 0).sum(dim=1, dtype=torch.int32)
+    mem = DocStore.from_docs(SparseDocs(ids, vals, nnz, 3000),
+                             chunk_size=96)
+    disk = mem.save(str(tmp_path / "s"))
+    for store in (mem, disk):
+        feed = ChunkPrefetcher(store, depth=depth, device=dev)
+        sums, seen = [], []
+        for ci, cdocs in feed:
+            assert cdocs.ids.is_cuda and cdocs.ids.shape == (96, 40)
+            seen.append(ci)
+            sums.append((cdocs.vals.double().sum(), cdocs.ids.sum(),
+                         cdocs.nnz.sum()))
+        assert seen == list(range(store.n_chunks))
+        for ci, (v, i, n) in enumerate(sums):
+            h_ids, h_vals, h_nnz = store.host_chunk(ci)
+            assert float(v) == float(np.asarray(h_vals, np.float64).sum())
+            assert int(i) == int(np.asarray(h_ids).sum())
+            assert int(n) == int(np.asarray(h_nnz).sum())
+        assert feed.wait_s >= 0.0 and 0 <= feed.late <= store.n_chunks
+    with pytest.raises(IndexError):
+        list(ChunkPrefetcher(mem, order=[0, 99], device=dev))
+
+
+def test_streaming_fit_on_card_equals_resident(dev):
+    """A four-chunk store fit on the card equals the resident card fit
+    bit for bit, through the kernels alone."""
+    from repro_torch.core.lloyd import lloyd_fit, streaming_fit
+    from repro_torch.core.update import draw_seed_rows
+    from repro_torch.data import CorpusSpec, make_corpus
+    from repro_torch.sparse.store import DocStore
+
+    docs, df, _, _ = make_corpus(CorpusSpec(n_docs=1200, vocab=2048,
+                                            nt_mean=40, n_topics=8, seed=3),
+                                 device="cpu")
+    rows = draw_seed_rows(1200, 12, seed=3)
+    kw = dict(k=12, batch_size=256, seed_rows=rows, df=df, device="cuda",
+              keep_trajectory=True)
+    want = lloyd_fit(docs, **kw)
+    ops.reset_counts()
+    got = streaming_fit(DocStore.from_docs(docs, chunk_size=300), **kw)
+    torch.cuda.synchronize()
+    assert got.n_iter == want.n_iter
+    for a, b in zip(got.trajectory, want.trajectory):
+        assert torch.equal(a, b)
+    for ha, hb in zip(got.history, want.history):
+        assert {f: v for f, v in ha.items() if f != "elapsed_s"} == \
+            {f: v for f, v in hb.items() if f != "elapsed_s"}
+    assert torch.equal(got.state.rho_self, want.state.rho_self)
+    assert torch.equal(got.state.index.means_t, want.state.index.means_t)
+    assert ops.LAUNCHES["segment_update_init"] > 0
+    assert all(v == 0 for v in ops.PLAIN.values()), ops.PLAIN

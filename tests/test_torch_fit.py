@@ -168,7 +168,9 @@ def test_package_imports_neither_jax_nor_repro():
             " repro_torch.kernels.rho_gather,"
             " repro_torch.kernels.flash_attention, repro_torch.serve.lm,"
             " repro_torch.models.transformer, repro_torch.configs.registry,"
-            " repro_torch.configs.gemma3_1b;"
+            " repro_torch.configs.gemma3_1b, repro_torch.checkpoint,"
+            " repro_torch.sparse.store, repro_torch.core.metrics,"
+            " repro_torch.data.loader, repro_torch.cluster.estimator;"
             " bad = [m for m in sys.modules if m == 'jax' or"
             " m.startswith('jax.') or m == 'repro' or m.startswith('repro.')];"
             " print(bad); sys.exit(1 if bad else 0)")

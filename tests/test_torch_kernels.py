@@ -447,6 +447,8 @@ def test_ops_dispatch_cpu_to_plain_versions():
                                                          dtype=torch.bool),
                      0.5)
     ops.segment_update(ta, _docs(ids, vals, 300), k=37)
+    ops.segment_update(ta, _docs(ids, vals, 300), k=37,
+                       init=torch.zeros((300, 37)))
     ops.rho_gather(ta, ti, tv, tm)
     ops.esicp_gather(ti, tv, tm, 100, 0.5, v_ta=torch.full((20,), 0.3))
     ops.sparse_sim(ti, tv, tm, square=True)
