@@ -20,8 +20,9 @@ each of which fails the run on any error:
              means-row bytes moved to the SMs are printed beside the
              gathers' bounds.  rho_gather runs as the update calls it
              (each row's first nnz slots), bit for bit against the plain
-             version on the live values and against a second run, with
-             the bound of its live tuples beside the old all-slots one;
+             version (``repro``'s windowed summation order) on the live
+             values and against a second run, with the bound of its live
+             tuples beside the old all-slots one;
              after phase 8 also on the bounds-esicp fit's labels and means.
              segment_update runs from the term-major layout the corpus
              builds once (its build time and bytes printed), twice and held
@@ -42,6 +43,22 @@ each of which fails the run on any error:
 6. breakdown — one more iteration from the fitted state, timed phase by
              phase (assignment epoch, update step, EstParams), here and
              after each fit of phase 7;
+6a. serving — the main fit's model behind a ``ClusterServer`` at the same
+             widths, one CUDA graph per bucket (8 ... 256) captured when
+             it loads (each capture's seconds printed); per bucket a replay
+             against the eager classify and ``classify_docs``, bit for
+             bit; bucket 64's replay against its eager launches; 8 client
+             threads x 64 requests of 1-64 corpus rows (from ``--seed``),
+             every answer equal to ``classify_docs``'s: requests/s,
+             documents/s, p50 and p99 latency, occupancy, replays per
+             bucket, one capture per bucket; ``ClusterEngine.refit`` on the
+             resident corpus (seconds, peak; its ρ equal to rho_gather's
+             and the plain version's on its assignments and means); a
+             hot-swap to the refit model under traffic, each answer the
+             old model's or the refit's in full, no bucket captured again.
+             Counters zeroed before the traffic and read after the swap:
+             sparse_sim ran by graph replays, segment_update and
+             rho_gather ran, no plain version;
 7. modes   — ``fit(..., algo="sketch")`` and ``fit(..., algo="bounds-esicp")``
              at the same widths from the same seed rows, cut to
              ``--mode-iter`` iterations, each with its counters zeroed just
@@ -81,7 +98,11 @@ Then the out-of-core plane, the resident corpus moved off the card:
              ``classify_docs`` over the store equal to the resident
              classify, ``transform_docs`` over a one-chunk store of the
              first 4,096 rows equal to the resident sims, ``cps_curve``,
-             ``mean_value_skew`` and NMI(streaming, resident) = 1;
+             ``mean_value_skew`` and NMI(streaming, resident) = 1; one
+             ``ClusterEngine.refit`` round over the store, counters zeroed
+             just before, equal to phase 6a's resident refit bit for bit
+             (assign, ρ, means), with sparse_sim, segment_update with and
+             without ``init`` and rho_gather launched, no plain version;
 10. minibatch — two passes of ``algo_mode="minibatch"`` over the store:
              the objective must not fall, the peak stay below four (D, K)
              matrices, and only sparse_sim, segment_update and rho_gather
@@ -195,6 +216,10 @@ PATH_KERNELS = {
     "streaming": ("esicp_gather", "esicp_filter", "segment_update",
                   "segment_update_init", "rho_gather"),
     "minibatch": ("sparse_sim", "segment_update", "rho_gather"),
+    # sparse_sim also by graph replays, counted by the servable
+    "serving": ("sparse_sim", "segment_update", "rho_gather"),
+    "store refit": ("sparse_sim", "segment_update", "segment_update_init",
+                    "rho_gather"),
 }
 INTS = ("mult", "n_candidates", "n_changed", "n_moving", "t_th")
 
@@ -428,17 +453,19 @@ def kernel_phase(torch, docs, seed: int):
 
     # rho_gather over the whole corpus as the update calls it: each row's
     # first nnz slots (values past nnz may be anything); bit for bit
-    # against the plain version on the live values, and on a second run
-    # (the kernel's centroid order within a bin is free).
-    rho = ops.rho_gather(assign, docs.ids, docs.vals, means_t, nnz=docs.nnz)
+    # against the plain version on the live values with every slot read,
+    # and on a second run (the kernel's centroid order within a bin is
+    # free).
+    full = torch.full_like(docs.nnz, p)
+    rho = ops.rho_gather(assign, docs.ids, docs.vals, means_t, docs.nnz)
     check_equal(torch, "rho_gather", rho, ref.rho_gather(
-        assign, docs.ids, vals_all, means_t))
+        assign, docs.ids, vals_all, means_t, full))
     check_equal(torch, "rho_gather nnz", rho, ref.rho_gather(
-        assign, docs.ids, docs.vals, means_t, nnz=docs.nnz))
+        assign, docs.ids, docs.vals, means_t, docs.nnz))
     check_equal(torch, "rho_gather second run", rho, ops.rho_gather(
-        assign, docs.ids, docs.vals, means_t, nnz=docs.nnz))
-    check_equal(torch, "rho_gather without nnz", rho, ops.rho_gather(
-        assign, docs.ids, vals_all, means_t))
+        assign, docs.ids, docs.vals, means_t, docs.nnz))
+    check_equal(torch, "rho_gather every slot", rho, ops.rho_gather(
+        assign, docs.ids, vals_all, means_t, full))
     require(bool((rho[::97] == 0).all()), "rho_gather: assign = K must read 0")
     # The least bytes: each live tuple of a row assigned in [0, K) (8 B)
     # and its means entry (4 B), assign and ρ of every row, nnz of those.
@@ -448,18 +475,17 @@ def kernel_phase(torch, docs, seed: int):
     rows["rho_gather"] = dict(
         max_abs_err=0.0,
         ms=time_ms(torch, lambda: ops.rho_gather(
-            assign, docs.ids, docs.vals, means_t, nnz=docs.nnz)),
+            assign, docs.ids, docs.vals, means_t, docs.nnz)),
         plain_ms=time_ms(torch, lambda: ref.rho_gather(
-            assign, docs.ids, vals_all, means_t), reps=3),
+            assign, docs.ids, docs.vals, means_t, docs.nnz), reps=3),
         library_ms=None,
         bound=bound_ms(live_in * 12 + n * 8 + n_in * 4, 2 * live_in),
         extra=dict(
             # The count held before the nnz operand: every slot's tuple.
             bound_all_slots_ms=bound_ms(n * p * 8 + n * 8 + nnz_all * 4,
                                         2 * nnz_all)[0],
-            without_nnz_ms=time_ms(torch, lambda: ops.rho_gather(
-                assign, docs.ids, vals_all, means_t)),
-            live_vals_ms=time_ms(torch, docs.live_vals)))
+            all_slots_ms=time_ms(torch, lambda: ops.rho_gather(
+                assign, docs.ids, vals_all, means_t, full))))
 
     # Thresholds as EstParams picks them for these means.
     params, _ = estimate_params(docs, docs.df, means_t, rho, k=k)
@@ -556,12 +582,11 @@ def fitted_rho(torch, docs, model, row) -> None:
     version, its time kept in the row as ``fitted_ms``."""
     from repro_torch.kernels import ops, ref
 
-    args = (model.labels, docs.ids, docs.vals, model.index.means_t)
-    got = ops.rho_gather(*args, nnz=docs.nnz)
-    check_equal(torch, "rho_gather (fitted)", got,
-                ref.rho_gather(*args, nnz=docs.nnz))
-    row["extra"]["fitted_ms"] = time_ms(
-        torch, lambda: ops.rho_gather(*args, nnz=docs.nnz))
+    args = (model.labels, docs.ids, docs.vals, model.index.means_t,
+            docs.nnz)
+    got = ops.rho_gather(*args)
+    check_equal(torch, "rho_gather (fitted)", got, ref.rho_gather(*args))
+    row["extra"]["fitted_ms"] = time_ms(torch, lambda: ops.rho_gather(*args))
     log(f"  rho_gather on the bounds-esicp fit's state: "
         f"{row['extra']['fitted_ms']:.4f} ms, bitwise equal to plain")
 
@@ -792,6 +817,294 @@ def breakdown_phase(torch, docs, df, model, algo: str = "esicp",
     for name, sec in out.items():
         log(f"  {name}: {sec:.3f} s")
     return out
+
+
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 64      # a client's requests, of 1 to 64 documents each
+
+
+def _client_plan(n_docs: int, seed: int, n_requests: int):
+    """Per client, ``n_requests`` arrays of corpus rows (1 to 64 each),
+    drawn from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[rng.integers(0, n_docs, int(rng.integers(1, 65)))
+             for _ in range(n_requests)] for _ in range(SERVE_CLIENTS)]
+
+
+def _drive_clients(srv, name, rows_h, plan, until=None):
+    """One thread per client, each submitting its requests in turn and
+    waiting for each answer (60 s at most).  With ``until`` (an Event) a
+    client goes round its requests until the event is set, then once more.
+    Returns (latencies s, wall s, [(rows, assign, sims)])."""
+    import threading
+
+    lat, answers, errors = [], [], []
+    lock = threading.Lock()
+    ids_h, vals_h, nnz_h = rows_h
+
+    def requests(reqs):
+        while until is not None and not until.is_set():
+            yield from reqs
+        yield from reqs
+
+    def client(reqs):
+        for rows in requests(reqs):
+            t = time.perf_counter()
+            try:
+                a, s = srv.submit(name, (ids_h[rows], vals_h[rows],
+                                         nnz_h[rows])).result(timeout=60)
+            except Exception as e:            # reported, and fails the run
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                lat.append(time.perf_counter() - t)
+                answers.append((rows, a, s))
+
+    threads = [threading.Thread(target=client, args=(reqs,))
+               for reqs in plan]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "a client hung")
+    require(not errors, f"serving traffic failed: {errors[:3]}")
+    return lat, wall, answers
+
+
+def _traffic_line(srv, name, answers, lat, wall, since=0) -> str:
+    """The traffic's rates and latencies; batches counted after ``since``,
+    occupancy over the server's life."""
+    stats = srv.stats(name)
+    n_req = len(answers)
+    n_docs = sum(len(a[0]) for a in answers)
+    occ = stats["occupancy"]
+    mean_occ = (sum(v["batches"] * v["mean_occupancy"] for v in occ.values())
+                / max(1, sum(v["batches"] for v in occ.values())))
+    lat_ms = sorted(x * 1e3 for x in lat)
+    return (f"{SERVE_CLIENTS} clients, {n_req} requests of 1-64 documents, "
+            f"{n_docs} documents in {wall:.3f} s = {n_req / wall:.1f} "
+            f"requests/s, {n_docs / wall:.1f} documents/s; latency p50 "
+            f"{statistics.median(lat_ms):.3f} ms, p99 "
+            f"{lat_ms[int(0.99 * (len(lat_ms) - 1))]:.3f} ms; "
+            f"{stats['n_batches'] - since} batches; over the server's life "
+            f"mean occupancy {mean_occ:.4f}, peak live batches "
+            f"{stats['peak_live_batches']}, by bucket {occ}")
+
+
+def serving_phase(torch, docs, model, cls, seed: int):
+    """The main fit's model behind a ClusterServer at the NYT widths: per
+    bucket a graph replay against the eager classify and classify_docs,
+    concurrent traffic, a refit on the resident corpus, a hot-swap to the
+    refit model under traffic.  Counters are zeroed before the traffic and
+    read after the swap's traffic; the checks that launch kernels come
+    after that.  Returns (launches with the replays under sparse_sim, the
+    refit's assign, ρ and means on the host)."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.cluster import classify_docs
+    from repro_torch.cluster.classify import _classify_fused
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import ClusterEngine, ClusterServer
+
+    t0 = phase(f"serving: ClusterServer over the main fit's model, "
+               f"K={NYT_K} D={docs.dim} P={docs.pad_width}")
+    rows_h = (docs.ids.cpu().numpy(), docs.vals.cpu().numpy(),
+              docs.nnz.cpu().numpy())
+    want = [(cls[0].cpu().numpy(), cls[1].cpu().numpy())]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    srv = ClusterServer(max_live_batches=4, batch_timeout_s=0.002,
+                        n_post_workers=2)
+    try:
+        sv = srv.load("nyt", model, pad_width=docs.pad_width)
+        torch.cuda.synchronize()
+        buckets = sv.sorted_batch_sizes
+        ones = dict.fromkeys(buckets, 1)
+        log(f"  built and captured in {time.perf_counter() - t:.3f} s; "
+            f"capture s by bucket "
+            f"{ {b: round(v, 4) for b, v in sv.capture_s.items()} }; graph "
+            f"pools and staging "
+            f"{(torch.cuda.memory_allocated() - base) / 2**20:.1f} MiB")
+        require(sv.capture_counts() == ones, f"captures {sv.capture_counts()}")
+
+        # Bit for bit per bucket: replay, eager, classify_docs.
+        rng = np.random.default_rng(seed)
+        for b in buckets:
+            n = max(1, b - b // 8)            # dead padding rows too
+            rows = rng.integers(0, docs.n_docs, n)
+            batch = sv.pre_process([tuple(x[rows] for x in rows_h)])
+            a, s = sv.post_process(sv.device_compute(batch), n)
+            e_a, e_s = _classify_fused(torch.from_numpy(batch.ids).cuda(),
+                                       torch.from_numpy(batch.vals).cuda(),
+                                       sv.index.means_t)
+            require(np.array_equal(a, e_a[:n].cpu().numpy())
+                    and np.array_equal(s, e_s[:n].cpu().numpy()),
+                    f"serving bucket {b}: replay differs from eager")
+            require(np.array_equal(a, want[0][0][rows])
+                    and np.array_equal(s, want[0][1][rows]),
+                    f"serving bucket {b}: differs from classify_docs")
+        log(f"  every bucket {list(buckets)}: graph replay equals the eager "
+            f"classify and classify_docs bit for bit")
+
+        # Bucket 64: its replay against the eager launches of the batch.
+        batch64 = sv.pre_process([tuple(x[:64] for x in rows_h)])
+        ids64 = torch.from_numpy(batch64.ids).cuda()
+        vals64 = torch.from_numpy(batch64.vals).cuda()
+        g = sv._graphs[64]
+        g.ids.copy_(ids64)
+        g.vals.copy_(vals64)
+        replay_ms = time_ms(torch, g.graph.replay)
+        eager_ms = time_ms(torch, lambda: _classify_fused(
+            ids64, vals64, sv.index.means_t))
+
+        def round_trip_ms(fn):
+            times = []
+            for _ in range(30):
+                t = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t)
+            return statistics.median(times) * 1e3
+
+        rt_graph = round_trip_ms(lambda: sv.post_process(
+            sv.device_compute(batch64), 64))
+        rt_eager = round_trip_ms(lambda: [x.cpu() for x in _classify_fused(
+            torch.from_numpy(batch64.ids).cuda(),
+            torch.from_numpy(batch64.vals).cuda(), sv.index.means_t)])
+        log(f"  bucket 64 back to back (CUDA events): graph replay "
+            f"{replay_ms:.4f} ms, eager launches {eager_ms:.4f} ms; a "
+            f"batch's host round trip (copy in, classify, copy out, wait), "
+            f"median of 30: graph {rt_graph:.4f} ms, eager {rt_eager:.4f} ms")
+
+        # The counted path: traffic, refit, swap under traffic.
+        plan = _client_plan(docs.n_docs, seed, SERVE_REQUESTS)
+        swap_plan = _client_plan(docs.n_docs, seed + 1, SERVE_REQUESTS // 4)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        sv.reset_replay_counts()
+        lat, wall, answers = _drive_clients(srv, "nyt", rows_h, plan)
+        replays = sv.replay_counts()
+        log(f"  traffic: {_traffic_line(srv, 'nyt', answers, lat, wall)}")
+        log(f"  replays by bucket {replays}; captures {sv.capture_counts()};"
+            f" kernels.ops launches during the traffic "
+            f"{ {k: v for k, v in ops.LAUNCHES.items() if v} }")
+        require(not any(ops.LAUNCHES.values()),
+                f"an eager launch during the traffic: {ops.LAUNCHES}")
+        require(sum(replays.values()) == srv.stats("nyt")["n_batches"],
+                f"replays {replays} against the batches")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        engine = ClusterEngine.from_model(model, batch_size=BATCH)
+        t = time.perf_counter()
+        r_assign, r_rho = engine.refit(docs, n_iter=1)
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t
+        refit_peak = torch.cuda.max_memory_allocated()
+        new_model = engine.to_model()
+        del engine
+
+        swapped, done = {}, threading.Event()
+
+        def do_swap():
+            try:
+                time.sleep(0.05)
+                t = time.perf_counter()
+                swapped["old"] = srv.swap("nyt", new_model)
+                swapped["s"] = time.perf_counter() - t
+            finally:
+                done.set()
+
+        since = srv.stats("nyt")["n_batches"]
+        swapper = threading.Thread(target=do_swap)
+        swapper.start()
+        lat2, wall2, answers2 = _drive_clients(srv, "nyt", rows_h, swap_plan,
+                                               until=done)
+        swapper.join(600)
+        require(not swapper.is_alive() and swapped.get("old") is sv,
+                "the swap did not complete")
+        new_sv = srv.registry.get("nyt")
+        torch.cuda.synchronize()
+        launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+        old_r, new_r = sv.replay_counts(), new_sv.replay_counts()
+        replays_all = {b: old_r[b] + new_r[b] for b in buckets}
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  refit (1 round, resident corpus): {refit_s:.3f} s, peak "
+            f"{refit_peak / 2**30:.2f} GiB; "
+            f"{int((r_assign != model.labels).sum())} documents left the "
+            f"main fit's labels")
+        log(f"  hot-swap under traffic: swap (build, capture, publish) "
+            f"{swapped['s']:.3f} s; traffic "
+            f"{_traffic_line(srv, 'nyt', answers2, lat2, wall2, since)}")
+        log(f"  the old servable replayed "
+            f"{sum(old_r.values()) - sum(replays.values())} of those "
+            f"batches, the new {sum(new_r.values())}; new capture s by "
+            f"bucket { {b: round(v, 4) for b, v in new_sv.capture_s.items()} }"
+            f"; peak device memory since the refit began "
+            f"{peak / 2**30:.2f} GiB")
+        log(f"  counters over traffic, refit and swap: replays by bucket "
+            f"{replays_all}; kernels.ops launches "
+            f"{ {k: v for k, v in launches.items() if v} }; plain-version "
+            f"calls { {k: v for k, v in plain.items() if v} }")
+        require(sum(old_r.values()) > sum(replays.values())
+                and sum(new_r.values()) > 0,
+                "the swap's traffic did not run on both servables")
+        require(all(launches[k] > 0 for k in PATH_KERNELS["serving"]),
+                f"serving: a kernel of its path never launched: {launches}")
+        require(all(v == 0 for v in plain.values()),
+                f"serving: a plain version ran: {plain}")
+        require(sv.capture_counts() == ones
+                and new_sv.capture_counts() == ones,
+                f"a bucket was captured again: {sv.capture_counts()}, "
+                f"{new_sv.capture_counts()}")
+        require(srv.stats("nyt")["n_failures"] == 0, "a request failed")
+
+        # The checks, after the counters.
+        for rows, a, s in answers:
+            require(np.array_equal(a, want[0][0][rows])
+                    and np.array_equal(s, want[0][1][rows]),
+                    "a served answer differs from classify_docs")
+        means_t = new_model.index.means_t
+        check_equal(torch, "refit ρ vs rho_gather", r_rho, ops.rho_gather(
+            r_assign, docs.ids, docs.vals, means_t, docs.nnz))
+        check_equal(torch, "refit ρ vs plain", r_rho, ref.rho_gather(
+            r_assign, docs.ids, docs.vals, means_t, docs.nnz))
+        want.append(tuple(x.cpu().numpy() for x in classify_docs(
+            new_model.index, docs, batch_size=BATCH)))
+        n_old = 0
+        for rows, a, s in answers2:
+            old, new = ((np.array_equal(a, wa[rows])
+                         and np.array_equal(s, ws[rows])) for wa, ws in want)
+            require(old or new, "a torn answer under the swap")
+            n_old += old and not new
+        a, _ = srv.classify("nyt", tuple(x[:300] for x in rows_h),
+                            timeout=60)
+        require(np.array_equal(a, want[1][0][:300]),
+                "after the swap the server does not answer with the refit")
+        log(f"  {len(answers)} answers equal classify_docs bit for bit; "
+            f"under the swap {len(answers2)} answers, each the old model's "
+            f"({n_old} only the old's) or the refit's in full; the refit's "
+            f"ρ equals rho_gather's and the plain version's on its "
+            f"assignments and means bit for bit")
+        t = time.perf_counter()
+        refit_rec = dict(assign=r_assign.cpu(), rho=r_rho.cpu(),
+                         means=means_t.cpu())
+        log(f"  refit kept on the host for the streaming phase "
+            f"({time.perf_counter() - t:.1f} s)")
+    finally:
+        srv.close()
+    del new_model, new_sv, sv, means_t
+    torch.cuda.empty_cache()
+    log(f"serving phase done in {time.perf_counter() - t0:.1f} s")
+    launches["sparse_sim"] += sum(replays_all.values())
+    return launches, refit_rec
 
 
 def mode_phase(torch, docs, df, algo: str, max_iter: int, esicp_traj):
@@ -1090,7 +1403,7 @@ def init_kernel_row(torch, store, assign, means_t) -> dict:
     del lam, flat, fvals
     torch.cuda.empty_cache()
 
-    n_h, k_h = 20_000, 1_000
+    n_h, k_h = min(20_000, c0.n_docs), 1_000
     gen = torch.Generator(device="cuda").manual_seed(7)
     h_docs = SparseDocs(c0.ids[:n_h].contiguous(), c0.vals[:n_h].contiguous(),
                         c0.nnz[:n_h].contiguous(), d)
@@ -1133,14 +1446,18 @@ def copy_pass_s(torch, store, depth: int) -> float:
     return time.perf_counter() - t
 
 
-def streaming_phase(torch, store, docs_h, df, resident, max_iter: int):
+def streaming_phase(torch, store, docs_h, df, resident, refit_rec,
+                    max_iter: int):
     """streaming_fit over the disk store against phase 5's resident fit,
-    then classify, transform and the UC diagnostics over it."""
-    from repro_torch.cluster import classify_docs, transform_docs
+    then classify, transform and the UC diagnostics over it, and one
+    ``ClusterEngine.refit`` round over it against the serving phase's
+    resident refit."""
+    from repro_torch.cluster import FittedModel, classify_docs, transform_docs
     from repro_torch.core import metrics
     from repro_torch.core.lloyd import streaming_fit
     from repro_torch.core.update import draw_seed_rows
     from repro_torch.kernels import ops
+    from repro_torch.serve import ClusterEngine
     from repro_torch.sparse.matrix import term_major
     from repro_torch.sparse.store import DocStore
 
@@ -1237,8 +1554,40 @@ def streaming_phase(torch, store, docs_h, df, resident, max_iter: int):
     log(f"  CPS(0.1) {cps[10]:.4f} (PubMed in the paper: ≈ 0.92), CPS(0.2) "
         f"{cps[20]:.4f}, CPS(0.5) {cps[50]:.4f}; mean_value_skew {skew}; "
         f"NMI(streaming, resident) {nmi}")
+
+    # One refit round over the store, from the streaming fit's index (its
+    # means and thresholds are the main fit's, held above), counted on its
+    # own: the serving phase's resident refit bit for bit.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    engine = ClusterEngine.from_model(FittedModel(index=index),
+                                      batch_size=BATCH)
+    t = time.perf_counter()
+    r_assign, r_rho = engine.refit(store, n_iter=1)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t
+    refit_launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    log(f"  store refit (1 round, {store.n_chunks} chunks): {refit_s:.3f} s,"
+        f" peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches { {k: v for k, v in refit_launches.items() if v} }; "
+        f"plain-version calls { {k: v for k, v in plain.items() if v} }")
+    require(all(refit_launches[n] > 0 for n in PATH_KERNELS["store refit"]),
+            f"store refit: a kernel of its path never launched: "
+            f"{refit_launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"store refit: a plain version ran: {plain}")
+    require(torch.equal(r_assign.cpu(), refit_rec["assign"])
+            and torch.equal(r_rho.cpu(), refit_rec["rho"]),
+            "store refit: assign or ρ differ from the resident refit")
+    _same_means(torch, engine.index.means_t, refit_rec["means"],
+                "store refit")
+    log("  store refit equals the resident refit bit for bit (assign, ρ, "
+        "means)")
+    del engine, r_assign, r_rho
+    torch.cuda.empty_cache()
     log(f"streaming phase done in {time.perf_counter() - t0:.1f} s")
-    return launches, row, seed_rows
+    return launches, row, seed_rows, refit_launches
 
 
 def minibatch_phase(torch, store, seed_rows):
@@ -1730,11 +2079,17 @@ def main() -> int:
     variant_launches, small = small_phase(torch, args.seed, args.small_iter)
     launches, model, cls = main_phase(torch, docs, df, args.max_iter)
     breakdown_phase(torch, docs, df, model)
+    serve_launches, refit_rec = serving_phase(torch, docs, model, cls,
+                                              args.seed)
     esicp_traj = model.trajectory
     resident = resident_record(torch, model, cls)
     del model, cls
     torch.cuda.empty_cache()
     paths = {name: ["esicp fit + classify"] for name in PATH_KERNELS["esicp"]}
+    for name in PATH_KERNELS["serving"]:
+        launches[name] += serve_launches[name]
+        paths[name].append("serving: graph replays" if name == "sparse_sim"
+                           else "serving: refit")
     for algo in ("sketch", "bounds-esicp"):
         got, model = mode_phase(torch, docs, df, algo, args.mode_iter,
                                 esicp_traj)
@@ -1758,11 +2113,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
         store = write_store(docs_h, tmp)
-        got, rows["segment_update_init"], seed_rows = streaming_phase(
-            torch, store, docs_h, df, resident, args.max_iter)
-        del resident
+        got, rows["segment_update_init"], seed_rows, refit_got = \
+            streaming_phase(torch, store, docs_h, df, resident, refit_rec,
+                            args.max_iter)
+        del resident, refit_rec
         launches["segment_update_init"] = got["segment_update_init"]
         paths["segment_update_init"] = ["streaming esicp fit"]
+        for name in PATH_KERNELS["store refit"]:
+            launches[name] += refit_got[name]
+            paths[name].append("store refit")
         minibatch_phase(torch, store, seed_rows)
         del store
     small_store_phase(torch, small)

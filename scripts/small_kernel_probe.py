@@ -28,9 +28,10 @@ Needs one CUDA GPU (built for sm_90a).  On the NYT-width corpus of
   topic), each with the normalised cluster sums of that assignment as
   means.  Timed, each held bit for bit against the plain version on the
   live values: this checkout's with ``nnz`` (as the update calls it) and
-  without (on the live values), every ``--other`` ``rho_gather.cu`` (the
-  C interface without nnz and scratch, on the live values as the update
-  called it), and the ``live_vals`` pass that update made for it; in turns
+  with every slot read (on the live values); every ``--other``
+  ``rho_gather.cu`` (a C interface with nnz and scratch), which may sum
+  in another order, within 1e-6 relative; and the ``live_vals`` pass the
+  update once made; in turns
   other, this, this, other.  Beside them the live tuples and the distinct
   32-byte sectors of means_t that they touch: the least means bytes, with
   every sector fetched once.
@@ -79,18 +80,21 @@ def other_doc_sketch(torch, lib, path: Path):
 
 
 def other_rho(torch, lib, path: Path):
-    """rho_gather(assign, ids, vals, means_t) from another revision's
-    rho_gather.cu."""
+    """rho_gather(assign, ids, vals, nnz, means_t) from another revision's
+    rho_gather.cu (the C interface with nnz and scratch)."""
     f = lib.rho_gather_launch
     f.restype = _I
-    f.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]
+    f.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
 
-    def run(assign, ids, vals, means_t):
+    def run(assign, ids, vals, nnz, means_t):
         b, pw = ids.shape
         d, k = means_t.shape
         out = torch.empty((b,), dtype=torch.float32, device=ids.device)
+        scratch = torch.empty((b + k + 1,), dtype=torch.int32,
+                              device=ids.device)
         rc = f(assign.data_ptr(), ids.data_ptr(), vals.data_ptr(),
-               means_t.data_ptr(), b, pw, d, k, out.data_ptr(),
+               nnz.data_ptr(), means_t.data_ptr(), b, pw, d, k,
+               scratch.data_ptr(), out.data_ptr(),
                torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"{path}: rho_gather launch error {rc}")
@@ -150,11 +154,15 @@ def cut_doc_sketch(torch, lib):
     return run
 
 
-def in_turns(torch, fns: dict, want) -> dict:
-    """Each fn held bit for bit against ``want``, then timed in the turns
-    a, b, ..., b, a (time_ms); {name: [ms, ms]}."""
+def in_turns(torch, fns: dict, want, near=()) -> dict:
+    """Each fn held bit for bit against ``want`` (those named in ``near``,
+    which sum in another order, within 1e-6 relative), then timed in the
+    turns a, b, ..., b, a (time_ms); {name: [ms, ms]}."""
     for name, fn in fns.items():
-        if not torch.equal(fn(), want):
+        got = fn()
+        same = (torch.allclose(got, want, rtol=1e-6, atol=1e-7)
+                if name in near else torch.equal(got, want))
+        if not same:
             raise SystemExit(f"{name}: differs from the plain version")
     order = list(fns) + list(fns)[::-1]
     times = {name: [] for name in fns}
@@ -245,6 +253,7 @@ def main() -> int:
     by_topic = (topics.long() * TOPIC_SPLIT
                 + torch.arange(n, device=dev) % TOPIC_SPLIT).to(torch.int32)
     live_vals = docs.live_vals()
+    full = torch.full_like(docs.nnz, docs.pad_width)
     result["live_vals_ms"] = time_ms(torch, docs.live_vals)
     print(f"live_vals pass: {result['live_vals_ms']:.4f} ms", flush=True)
     others = [(str(src), other_rho(torch, libs[src], src))
@@ -253,15 +262,16 @@ def main() -> int:
         lam = ops.segment_update(assign, docs, k=k)
         means_t = normalized_means(lam, lam)
         del lam
-        want = ref.rho_gather(assign, docs.ids, live_vals, means_t)
+        want = ref.rho_gather(assign, docs.ids, docs.vals, means_t,
+                              docs.nnz)
         fns = {name: (lambda run=run: run(assign, docs.ids, live_vals,
-                                          means_t))
+                                          docs.nnz, means_t))
                for name, run in others}
         fns["this, nnz"] = lambda: ops.rho_gather(
-            assign, docs.ids, docs.vals, means_t, nnz=docs.nnz)
+            assign, docs.ids, docs.vals, means_t, docs.nnz)
         fns["this, live values"] = lambda: ops.rho_gather(
-            assign, docs.ids, live_vals, means_t)
-        times = in_turns(torch, fns, want)
+            assign, docs.ids, live_vals, means_t, full)
+        times = in_turns(torch, fns, want, near=[n for n, _ in others])
         tuples, n_sec = sectors(torch, docs, assign, k)
         result[f"rho_gather {label}"] = {"ms": times, "live_tuples": tuples,
                                          "sectors": n_sec}
@@ -270,7 +280,9 @@ def main() -> int:
               f"if each is fetched once; {tuples * 32 / 1e9:.4f} GB if "
               f"each tuple fetches one)", flush=True)
         for name, ms in times.items():
-            print(f"  {name}: {ms} ms, bitwise equal to plain", flush=True)
+            same = ("within 1e-6 of plain (another order)" if name in
+                    dict(others) else "bitwise equal to plain")
+            print(f"  {name}: {ms} ms, {same}", flush=True)
         del means_t, want
 
     (PROBE_BUILD / "small_kernel_probe.json").write_text(

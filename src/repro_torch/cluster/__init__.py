@@ -4,6 +4,7 @@
     model = repro_torch.cluster.fit(docs, ClusterConfig(k=10_000))
     labels = model.predict(docs)       # == classify_docs(model.index, docs)
     model.save(path); model = load_model(path)
+    engine = ClusterEngine.from_model(model)   # serve, refit, hot-swap
 
 ``docs`` may be resident SparseDocs or a DocStore (the streaming fit).
 """
@@ -29,6 +30,17 @@ def fit(docs, config: ClusterConfig, *, df=None, seed_rows=None,
         keep_trajectory=keep_trajectory).model_
 
 
-__all__ = ["ClusterConfig", "FittedModel", "STRATEGIES", "SingleHostStrategy",
-           "SphericalKMeans", "StreamingStrategy", "classify_docs", "fit",
-           "load_model", "resolve_strategy", "transform_docs"]
+__all__ = ["ClusterConfig", "ClusterEngine", "FittedModel", "STRATEGIES",
+           "SingleHostStrategy", "SphericalKMeans", "StreamingStrategy",
+           "classify_docs", "fit", "load_model", "resolve_strategy",
+           "transform_docs"]
+
+
+def __getattr__(name):
+    # ClusterEngine lives in repro_torch.serve, whose modules import this
+    # package's: re-exported on first use, so neither import order cycles.
+    if name == "ClusterEngine":
+        from repro_torch.serve.engine import ClusterEngine
+
+        return ClusterEngine
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

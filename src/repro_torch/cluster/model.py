@@ -83,6 +83,13 @@ class FittedModel:
         _, sims = classify_docs(self.index, docs, batch_size=batch_size)
         return float(sims.double().sum())
 
+    def servable(self, **kw):
+        """This artifact wrapped for the serving plane:
+        ``repro_torch.serve.ServableClusterModel(self, **kw)``."""
+        from repro_torch.serve.servable import ServableClusterModel
+
+        return ServableClusterModel(self, **kw)
+
     # -- persistence -------------------------------------------------------
     def save(self, directory: str, *, step: int = 0) -> str:
         """Atomically persist the artifact; returns the committed path."""

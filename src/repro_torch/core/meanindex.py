@@ -29,7 +29,8 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import sqrt_rn
+from repro_torch.kernels.ref import (WINDOW, _sequential_sum, sqrt_rn,
+                                     window_sum)
 
 # Elements of one (rows, K) chunk of the means matrix.
 CHUNK_ELEMS = 1 << 24
@@ -145,6 +146,17 @@ class MeanIndex:
     def k(self) -> int:
         return self.means_t.shape[1]
 
+    def to(self, device) -> MeanIndex:
+        """This index on ``device`` (self when it is there already)."""
+        dev = torch.device(device)
+        here = self.means_t.device
+        if here.type == dev.type and dev.index in (None, here.index):
+            return self
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(dev)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
     def with_params(self, params: StructuralParams) -> MeanIndex:
         """The same means under new thresholds (only mf_h depends on them)."""
         return dataclasses.replace(self, params=params,
@@ -180,42 +192,6 @@ def build_mean_index(means_t: torch.Tensor, params: StructuralParams,
                      n_moving=moving.sum(), params=params,
                      mf_h=_mf_high(means_t, params),
                      sketch_t=sketch_means(means_t))
-
-
-# Width of one window of ``repro``'s CPU reductions (see window_sum).
-WINDOW = 32
-
-
-def _sequential_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Σ along ``dim`` as acc = 0; acc = acc + x[j] for j in order."""
-    acc = torch.zeros_like(x.select(dim, 0))
-    for j in range(x.shape[dim]):
-        acc = acc + x.select(dim, j)
-    return acc
-
-
-def _window_level(x: torch.Tensor) -> torch.Tensor:
-    """One level of the tree: zero-pad dim 0 to a WINDOW multiple (half the
-    padding in front), then sum each window of WINDOW rows in order."""
-    n = x.shape[0]
-    pad = -n % WINDOW
-    x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
-    return _sequential_sum(x.reshape(-1, WINDOW, x.shape[1]), 1)
-
-
-def window_sum(x: torch.Tensor) -> torch.Tensor:
-    """(N, M) -> (M,) float32 sums over dim 0 in ``repro``'s order.
-
-    XLA's CPU compiler rewrites a float32 reduction longer than WINDOW into
-    window levels (:func:`_window_level`) until at most WINDOW partials
-    remain, which it adds in order.  Repeating that order makes these sums
-    equal ``repro``'s bit for bit, on the CPU and on the card alike (the
-    adds are elementwise, so the device's own reduction order never
-    enters).
-    """
-    while x.shape[0] > WINDOW:
-        x = _window_level(x)
-    return _sequential_sum(x, 0)
 
 
 def column_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,21 @@
 // takes may change from run to run; each writes only out[b], so the result
 // does not.  Documents outside [0, K) write 0 and read no means.
 //
-// Per document: lane l walks the slots l, l+32, ... below the row's length
-// (nnz[b] when given, else P) and adds v * means_t[id, assign_b] for each
-// slot with v != 0 and id in [0, D), the rounded product to a sum from +0;
-// a butterfly of shuffles over offsets 16, 8, 4, 2, 1 folds the lanes.
-// The plain version in kernels/ref.py repeats this order exactly.  A lane
-// loads eight of its tuples before it reads their means entries, so a row
-// of up to 256 live slots needs one round of each.
+// Per document, one warp, the row's first nnz[b] slots: a slot adds the
+// rounded product v * means_t[id, assign_b] when v != 0 and id lies in
+// [0, D), and the products are summed in repro's float32 order over the
+// row's padded width P (kernels/ref.py window_sum): level-1 windows of 32
+// slots with half of P's padding to a multiple of 32 in front, each window
+// summed in order from +0; when there are more than 32 windows, level-2
+// windows of 32 windows padded the same way; then the last level's
+// partials in order.  A slot past nnz, a dead slot and a padding slot add
+// +0, which leaves a sum that never is -0 unchanged, so only the windows
+// that hold a live slot are computed.  The warp loads 8 windows' slots
+// (8 a lane, coalesced), gathers their means entries and stages the
+// products in shared memory, one window a row padded to 33 floats (lane w
+// then reads window w's slot o from bank (w + o) mod 32); 8 lanes sum a
+// window each, and every lane folds the 8 partials into the level-2 and
+// final sums in order by shuffles.  Rows up to 32 x 32 x 32 slots.
 #include <cuda_runtime.h>
 
 namespace {
@@ -26,7 +34,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kScanThreads = 1024;
-constexpr int kAhead = 8;
+constexpr int kWin = 32;              // slots (or partials) in a window
+constexpr int kGroup = 8;             // windows staged at a time
+constexpr int kStride = kWin + 1;     // a staged window, padded
+constexpr int kMaxWidth = kWin * kWin * kWin;
 
 __device__ __forceinline__ int bin_of(int a, int K) {
   return static_cast<unsigned>(a) < static_cast<unsigned>(K) ? a : K;
@@ -87,53 +98,86 @@ rho_gather_kernel(const int* __restrict__ order,
                   const int* __restrict__ assign, const int* __restrict__ nnz,
                   const int* __restrict__ ids, const float* __restrict__ vals,
                   const float* __restrict__ means_t, int B, int P, int D,
-                  int K, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int i = blockIdx.x * kWarps + (threadIdx.x >> 5);
+                  int K, int lo1, int lo2, float* __restrict__ out) {
+  __shared__ float stage[kWarps][kGroup * kStride];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * kWarps + warp;
   if (i >= B) return;  // the whole warp leaves together
   const int b = order[i];
   const int a = assign[b];
-  float acc = 0.0f;
+  float total = 0.0f;
   if (static_cast<unsigned>(a) < static_cast<unsigned>(K)) {
-    const int n = nnz != nullptr ? min(max(nnz[b], 0), P) : P;
+    const int n = min(max(nnz[b], 0), P);
     const size_t row = static_cast<size_t>(b) * P;
     const float* col = means_t + a;
-    for (int p0 = 0; p0 < n; p0 += kAhead * 32) {
-      float v[kAhead], m[kAhead];
-      int id[kAhead];
+    float* buf = stage[warp];
+    // Level-1 windows 0 .. w_end-1 hold the live slots (slot p sits at
+    // padded position p + lo1); window w is in level-2 window (w + lo2)/32.
+    const int w_end = n > 0 ? (n - 1 + lo1) / kWin + 1 : 0;
+    float group = 0.0f;
+    int cur = 0;
+    for (int w0 = 0; w0 < w_end; w0 += kGroup) {
+      float v[kGroup];
+      int id[kGroup];
 #pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        const int p = p0 + u * 32 + lane;
-        v[u] = p < n ? vals[row + p] : 0.0f;
-        id[u] = p < n ? ids[row + p] : 0;
+      for (int u = 0; u < kGroup; ++u) {
+        const int p = (w0 + u) * kWin + lane - lo1;
+        const bool in = p >= 0 && p < n;
+        v[u] = in ? vals[row + p] : 0.0f;
+        id[u] = in ? ids[row + p] : 0;
       }
 #pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
+      for (int u = 0; u < kGroup; ++u) {
         const bool live = v[u] != 0.0f && id[u] >= 0 && id[u] < D;
-        m[u] = live ? __ldg(col + static_cast<size_t>(id[u]) * K) : 0.0f;
-        if (!live) v[u] = 0.0f;
+        const float m =
+            live ? __ldg(col + static_cast<size_t>(id[u]) * K) : 0.0f;
+        buf[u * kStride + lane] = live ? __fmul_rn(v[u], m) : 0.0f;
       }
+      __syncwarp();
+      float win = 0.0f;
+      if (lane < kGroup) {
+        const float* r = buf + lane * kStride;
 #pragma unroll
-      for (int u = 0; u < kAhead; ++u)
-        if (v[u] != 0.0f) acc = __fadd_rn(acc, __fmul_rn(v[u], m[u]));
+        for (int o = 0; o < kWin; ++o) win = __fadd_rn(win, r[o]);
+      }
+      __syncwarp();  // the next round overwrites buf
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const float part = __shfl_sync(0xffffffffu, win, u);
+        const int w = w0 + u;
+        if (w < w_end) {
+          const int j = (w + lo2) / kWin;
+          if (j != cur) {
+            total = __fadd_rn(total, group);
+            group = 0.0f;
+            cur = j;
+          }
+          group = __fadd_rn(group, part);
+        }
+      }
     }
+    total = __fadd_rn(total, group);
   }
-  for (int off = 16; off > 0; off >>= 1)
-    acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-  if (lane == 0) out[b] = acc;
+  if (lane == 0) out[b] = total;
 }
 
 }  // namespace
 
 // scratch: B + K + 1 int32 (the K + 1 bins, then the order), from the
-// caller's allocator.  nnz may be null (every row P slots long).
+// caller's allocator.  P at most kMaxWidth.
 extern "C" int rho_gather_launch(const void* assign, const void* ids,
                                  const void* vals, const void* nnz,
                                  const void* means_t, int B, int P, int D,
                                  int K, void* scratch, void* out,
                                  void* stream) {
   if (B == 0) return 0;
-  if (K < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 0 || P < 0 || P > kMaxWidth || nnz == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The window levels of a P-slot row: half the padding in front.
+  const int nw1 = (P + kWin - 1) / kWin;
+  const int lo1 = (nw1 * kWin - P) / 2;
+  const int nw2 = (nw1 + kWin - 1) / kWin;
+  const int lo2 = nw1 > kWin ? (nw2 * kWin - nw1) / 2 : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* bins = static_cast<int*>(scratch);
   int* order = bins + K + 1;
@@ -147,7 +191,7 @@ extern "C" int rho_gather_launch(const void* assign, const void* ids,
   rho_gather_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       order, a, static_cast<const int*>(nnz), static_cast<const int*>(ids),
       static_cast<const float*>(vals), static_cast<const float*>(means_t), B,
-      P, D, K, static_cast<float*>(out));
+      P, D, K, lo1, lo2, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

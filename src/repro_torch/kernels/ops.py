@@ -211,32 +211,34 @@ def segment_update(assign, docs, *, k: int, init=None):
     return lam_t
 
 
-def rho_gather(assign, ids, vals, means_t, nnz=None):
+def rho_gather(assign, ids, vals, means_t, nnz):
     """(B,) float32 ρ[b] = x_b·μ_{assign_b} (0 outside [0, K)).
 
-    ``nnz`` (B,) int32, when given, limits row b to its slots
-    [0, nnz[b]): the same ρ as the values with every slot past nnz set to
-    0 (``SparseDocs.live_vals``), bit for bit, without that pass.
+    ``nnz`` (B,) int32 limits row b to its slots [0, nnz[b]) (a caller
+    whose rows are all live passes P).  Each row sums in ``repro``'s
+    windowed float32 order (:func:`repro_torch.kernels.ref.window_sum`)
+    over its padded width, which the kernel takes up to
+    :data:`repro_torch.kernels.rho_gather.MAX_WIDTH` slots.
     """
     _check_tuples(ids, vals)
     _need(assign, "assign", torch.int32, 1)
     _need(means_t, "means_t", torch.float32, 2)
-    if assign.shape[0] != ids.shape[0]:
-        raise ValueError("assign must have one entry per row")
+    _need(nnz, "nnz", torch.int32, 1)
+    if assign.shape[0] != ids.shape[0] or nnz.shape[0] != ids.shape[0]:
+        raise ValueError("assign and nnz must have one entry per row")
     operands = [("assign", assign), ("ids", ids), ("vals", vals),
-                ("means_t", means_t)]
-    if nnz is not None:
-        _need(nnz, "nnz", torch.int32, 1)
-        if nnz.shape[0] != ids.shape[0]:
-            raise ValueError("nnz must have one entry per row")
-        operands.append(("nnz", nnz))
+                ("means_t", means_t), ("nnz", nnz)]
     if not _on_cuda(*(t for _, t in operands)):
         PLAIN["rho_gather"] += 1
-        return ref.rho_gather(assign, ids, vals, means_t, nnz=nnz)
+        return ref.rho_gather(assign, ids, vals, means_t, nnz)
     from repro_torch.kernels import rho_gather as kern
 
     _contiguous(*operands)
-    b, k = ids.shape[0], means_t.shape[1]
+    b, p = ids.shape
+    if p > kern.MAX_WIDTH:
+        raise ValueError(f"rows of {p} slots exceed the rho_gather kernel's "
+                         f"{kern.MAX_WIDTH}")
+    k = means_t.shape[1]
     out = torch.empty((b,), dtype=torch.float32, device=ids.device)
     if b:
         # The counting sort's bins and order, from the caching allocator.

@@ -18,8 +18,8 @@ for bit where the kernel's order is fixed:
 * ``esicp_filter`` — elementwise;
 * ``segment_update`` — every λ entry sums its tuples in row order (from
   +0, or onto ``init``);
-* ``rho_gather`` — lane l of a 32-lane warp sums slots l, l+32, ... and a
-  butterfly folds the lanes.
+* ``rho_gather`` — each row sums its products in :func:`window_sum`'s
+  order over its full padded width (``repro``'s float32 order).
 
 ``flash_attention`` is the exception: it materialises the (Sq, Sk) scores
 and softmax, as ``repro/kernels/ref.py:flash_attention`` does, and so
@@ -132,34 +132,66 @@ def segment_update(assign, ids, vals, k: int, d: int, init=None):
     return lam.view(d, k)
 
 
-def rho_gather(assign, ids, vals, means_t, nnz=None):
+def rho_gather(assign, ids, vals, means_t, nnz):
     """(B,) ρ[b] = x_b · μ_{assign_b}; 0 where assign_b lies outside [0, K).
 
-    With ``nnz`` (B,), row b reads only its slots [0, nnz[b]).  Lane l of
-    a row adds its products at slots l, l+32, ... in turn, then the lanes
-    fold over offsets 16, 8, 4, 2, 1 (the kernel's order)."""
+    Row b reads only its slots [0, nnz[b]) (a row whose slots are all live
+    passes nnz = P); a slot adds v·μ[id, assign_b] when v != 0 and id lies
+    in [0, D).  Each row's products, +0 at every other slot of its padded
+    width P, are summed in :func:`window_sum`'s order: ``repro``'s
+    ``jnp.sum(vals * picked, axis=1)`` bit for bit.  The window bounds
+    depend on P alone, and the +0 slots change no partial sum."""
     b, p = ids.shape
-    k = means_t.shape[1]
-    if nnz is not None:
-        live = torch.arange(p, device=ids.device) < nnz[:, None]
-        ids = torch.where(live, ids, 0)
-        vals = torch.where(live, vals, 0.0)
+    d, k = means_t.shape
+    out = torch.zeros((b,), dtype=torch.float32, device=ids.device)
+    if p == 0:
+        return out
     ok = (assign >= 0) & (assign < k)
     col = torch.where(ok, assign, 0).long()
-    lanes = -(-p // 32) * 32
-    out = torch.empty((b,), dtype=torch.float32, device=ids.device)
-    for s, e in _row_chunks(b, lanes):
-        prod = vals[s:e] * means_t[ids[s:e].long(), col[s:e, None]]
-        prod = torch.where(ok[s:e, None] & (vals[s:e] != 0), prod, 0.0)
-        prod = torch.nn.functional.pad(prod, (0, lanes - p))
-        prod = prod.view(e - s, lanes // 32, 32)
-        acc = torch.zeros((e - s, 32), dtype=torch.float32, device=ids.device)
-        for j in range(lanes // 32):
-            acc = acc + prod[:, j]
-        for off in (16, 8, 4, 2, 1):
-            acc = acc[:, :off] + acc[:, off:2 * off]
-        out[s:e] = acc[:, 0]
+    slots = torch.arange(p, device=ids.device)
+    for s, e in _row_chunks(b, p):
+        i = ids[s:e]
+        live = ((slots < nnz[s:e, None]) & ok[s:e, None] & (vals[s:e] != 0)
+                & (i >= 0) & (i < d))
+        m = means_t[torch.where(live, i, 0).long(), col[s:e, None]]
+        out[s:e] = window_sum(torch.where(live, vals[s:e] * m, 0.0).t())
     return out
+
+
+# Width of one window of ``repro``'s CPU reductions (see window_sum).
+WINDOW = 32
+
+
+def _sequential_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Σ along ``dim`` as acc = 0; acc = acc + x[j] for j in order."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for j in range(x.shape[dim]):
+        acc = acc + x.select(dim, j)
+    return acc
+
+
+def _window_level(x: torch.Tensor) -> torch.Tensor:
+    """One level of the tree: zero-pad dim 0 to a WINDOW multiple (half the
+    padding in front), then sum each window of WINDOW rows in order."""
+    n = x.shape[0]
+    pad = -n % WINDOW
+    x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
+    return _sequential_sum(x.reshape(-1, WINDOW, x.shape[1]), 1)
+
+
+def window_sum(x: torch.Tensor) -> torch.Tensor:
+    """(N, M) -> (M,) float32 sums over dim 0 in ``repro``'s order.
+
+    XLA's CPU compiler rewrites a float32 reduction longer than WINDOW into
+    window levels (:func:`_window_level`) until at most WINDOW partials
+    remain, which it adds in order.  Repeating that order makes these sums
+    equal ``repro``'s bit for bit, on the CPU and on the card alike (the
+    adds are elementwise, so the device's own reduction order never
+    enters).
+    """
+    while x.shape[0] > WINDOW:
+        x = _window_level(x)
+    return _sequential_sum(x, 0)
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -227,10 +227,12 @@ def test_segment_update_bitwise(dev, shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_rho_gather_equal_plain(dev, shape):
     ids, vals, means, assign = _inputs(*shape, seed=4)
-    g = [x.to(dev) for x in (assign, ids, vals, means)]
+    full = torch.full((shape[0],), shape[1], dtype=torch.int32)
+    g = [x.to(dev) for x in (assign, ids, vals, means, full)]
     got = ops.rho_gather(*g)
     assert torch.equal(got, ref.rho_gather(*g))
-    assert torch.equal(got.cpu(), ref.rho_gather(assign, ids, vals, means))
+    assert torch.equal(got.cpu(), ref.rho_gather(assign, ids, vals, means,
+                                                 full))
     assert bool((got[::5] == 0).all()) and bool((got[1::7] == 0).all())
 
 
@@ -357,12 +359,15 @@ def _rho_case(shape, case, seed):
 
 @pytest.mark.parametrize("case", ["drawn", "one_centroid", "empty_centroids"])
 @pytest.mark.parametrize("shape", SHAPES + [(1, 3, 20, 4), (20_001, 40,
-                                                            3000, 700)])
+                                                            3000, 700),
+                                   (300, 1100, 3000, 50),
+                                   (40, 5000, 8000, 9), (64, 32, 500, 7)])
 def test_rho_gather_nnz_equal_plain(dev, shape, case):
     """Rows limited by ``nnz``, with nonzero values and other ids past it:
     the live-values call's bits, the plain version's on the card and on
     the CPU, and the same bits on a second run (the centroid order within
-    a bin is free); B not a multiple of the 8-document block."""
+    a bin is free); B not a multiple of the 8-document block; rows of at
+    most 32 slots (one window), of 1100 and 5000 (two window levels)."""
     ids, vals, nnz, means, assign, live = _rho_case(shape, case, seed=16)
     g = [x.to(dev) for x in (assign, ids, vals, means)]
     n_dev = nnz.to(dev)
@@ -372,7 +377,9 @@ def test_rho_gather_nnz_equal_plain(dev, shape, case):
     assert ops.LAUNCHES["rho_gather"] == 2 and ops.PLAIN["rho_gather"] == 0
     assert torch.equal(got, again)
     assert torch.equal(got, ref.rho_gather(*g, nnz=n_dev))
-    assert torch.equal(got, ops.rho_gather(g[0], g[1], live.to(dev), g[3]))
+    full = torch.full_like(n_dev, shape[1])
+    assert torch.equal(got, ops.rho_gather(g[0], g[1], live.to(dev), g[3],
+                                           full))
     assert torch.equal(got.cpu(), ref.rho_gather(assign, ids, vals, means,
                                                  nnz=nnz))
     out = (assign < 0) | (assign >= shape[3])
@@ -623,4 +630,153 @@ def test_streaming_fit_on_card_equals_resident(dev):
     assert torch.equal(got.state.rho_self, want.state.rho_self)
     assert torch.equal(got.state.index.means_t, want.state.index.means_t)
     assert ops.LAUNCHES["segment_update_init"] > 0
+    assert all(v == 0 for v in ops.PLAIN.values()), ops.PLAIN
+
+
+def test_rho_gather_rejects_rows_past_its_width(dev):
+    from repro_torch.kernels.rho_gather import MAX_WIDTH
+
+    p = MAX_WIDTH + 1
+    ids = torch.zeros((2, p), dtype=torch.int32, device=dev)
+    z = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="exceed"):
+        ops.rho_gather(z, ids, ids.float(), torch.zeros((4, 3), device=dev),
+                       z)
+
+
+@pytest.fixture(scope="module")
+def serve_models(dev):
+    """(docs on the CPU, model A, model B on the card): two fits of one
+    small corpus from different seeds, and their rows' width."""
+    from repro_torch.cluster import ClusterConfig, fit
+    from repro_torch.data import CorpusSpec, make_corpus
+
+    docs, df, _, _ = make_corpus(CorpusSpec(n_docs=1500, vocab=3000,
+                                            nt_mean=40, n_topics=12, seed=5),
+                                 device="cpu")
+    a = fit(docs, ClusterConfig(k=24, max_iter=6, batch_size=512, seed=1,
+                                device="cuda"), df=df)
+    b = fit(docs, ClusterConfig(k=24, max_iter=2, batch_size=512, seed=9,
+                                device="cuda"), df=df)
+    return docs, a, b
+
+
+def _host_rows(docs, lo, hi):
+    return (docs.ids[lo:hi].numpy(), docs.vals[lo:hi].numpy(),
+            docs.nnz[lo:hi].numpy())
+
+
+def test_servable_graph_replay_equals_eager_per_bucket(dev, serve_models):
+    """Every bucket's graph replay, a batch with dead padding rows, equals
+    the eager classify of the same padded batch and ``classify_docs`` on
+    its rows bit for bit; one capture a bucket, one replay a batch, and
+    no launch through kernels.ops (a replay bypasses it)."""
+    from repro_torch.cluster import classify_docs
+    from repro_torch.cluster.classify import _classify_fused
+    from repro_torch.serve import ServableClusterModel
+
+    docs, model, _ = serve_models
+    sv = ServableClusterModel(model, pad_width=docs.pad_width, device=dev)
+    assert sv.capture_counts() == dict.fromkeys(sv.sorted_batch_sizes, 1)
+    want_a, want_s = classify_docs(model.index, docs.to(dev))
+    ops.reset_counts()
+    lo = 0
+    for bucket in sv.sorted_batch_sizes:
+        n = bucket - bucket // 8 if bucket > 8 else bucket
+        batch = sv.pre_process([_host_rows(docs, lo, lo + n)])
+        assert batch.bucket == bucket
+        a, s = sv.post_process(sv.device_compute(batch), n)
+        e_a, e_s = _classify_fused(torch.from_numpy(batch.ids).to(dev),
+                                   torch.from_numpy(batch.vals).to(dev),
+                                   sv.index.means_t)
+        assert np.array_equal(a, e_a[:n].cpu().numpy())
+        assert np.array_equal(s, e_s[:n].cpu().numpy())
+        assert np.array_equal(a, want_a[lo:lo + n].cpu().numpy())
+        assert np.array_equal(s, want_s[lo:lo + n].cpu().numpy())
+        lo += n
+    eager = len(sv.sorted_batch_sizes)
+    assert ops.LAUNCHES["sparse_sim"] == eager      # the eager calls only
+    assert sv.replay_counts() == dict.fromkeys(sv.sorted_batch_sizes, 1)
+    assert sv.capture_counts() == dict.fromkeys(sv.sorted_batch_sizes, 1)
+
+
+def test_server_swap_under_traffic_on_the_card(dev, serve_models):
+    """8 clients while the model is swapped: every answer is model A's
+    classify or model B's in full, none fails, each servable captured
+    each bucket once (the new one before it took traffic) and never
+    again."""
+    import threading
+
+    from repro_torch.cluster import classify_docs
+    from repro_torch.serve import ClusterServer
+
+    docs, model_a, model_b = serve_models
+    want = [classify_docs(m.index, docs.to(dev))[0].cpu().numpy()
+            for m in (model_a, model_b)]
+    assert (want[0] != want[1]).any()
+    srv = ClusterServer(device=dev, max_live_batches=3,
+                        batch_timeout_s=0.001)
+    try:
+        old = srv.load("m", model_a, pad_width=docs.pad_width)
+        rng = np.random.default_rng(0)
+        plan = [[(int(lo), int(lo + n)) for lo, n in zip(
+            rng.integers(0, 1400, 24), rng.integers(1, 64, 24))]
+            for _ in range(8)]
+        bad, done = [], []
+
+        def client(reqs):
+            for lo, hi in reqs:
+                try:
+                    a, _ = srv.classify("m", _host_rows(docs, lo, hi),
+                                        timeout=60)
+                except Exception as e:
+                    bad.append(repr(e))
+                    continue
+                if not any((a == w[lo:hi]).all() for w in want):
+                    bad.append(f"torn answer for rows {lo}:{hi}")
+                done.append(hi - lo)
+
+        threads = [threading.Thread(target=client, args=(p,)) for p in plan]
+        for t in threads:
+            t.start()
+        assert srv.swap("m", model_b) is old
+        new = srv.registry.get("m")
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+        assert not bad and len(done) == 8 * 24
+        a, _ = srv.classify("m", _host_rows(docs, 0, 300), timeout=60)
+        assert (a == want[1][:300]).all()
+        for sv in (old, new):
+            assert sv.capture_counts() == dict.fromkeys(
+                sv.sorted_batch_sizes, 1)
+        assert srv.stats("m")["n_failures"] == 0
+    finally:
+        srv.close()
+
+
+def test_refit_on_card_equals_cpu_and_store(dev, serve_models):
+    """``ClusterEngine.refit`` on the card: resident and over a 4-chunk
+    store bit for bit (assign, ρ, means), and equal to the CPU refit; the
+    update ran segment_update (both launches) and rho_gather, no plain
+    version."""
+    from repro_torch.serve import ClusterEngine
+    from repro_torch.sparse.store import DocStore
+
+    docs, model, _ = serve_models
+    cpu = ClusterEngine.from_model(model, device="cpu", batch_size=256)
+    c_a, c_r = cpu.refit(docs, n_iter=2)
+    ops.reset_counts()
+    res = ClusterEngine.from_model(model, device=dev, batch_size=256)
+    r_a, r_r = res.refit(docs, n_iter=2)
+    st = ClusterEngine.from_model(model, device=dev, batch_size=256)
+    s_a, s_r = st.refit(DocStore.from_docs(docs, chunk_size=400), n_iter=2)
+    torch.cuda.synchronize()
+    assert torch.equal(r_a, s_a) and torch.equal(r_r, s_r)
+    assert torch.equal(res.index.means_t, st.index.means_t)
+    assert torch.equal(r_a.cpu(), c_a) and torch.equal(r_r.cpu(), c_r)
+    assert torch.equal(res.index.means_t.cpu(), cpu.index.means_t)
+    for name in ("sparse_sim", "segment_update", "segment_update_init",
+                 "rho_gather"):
+        assert ops.LAUNCHES[name] > 0, name
     assert all(v == 0 for v in ops.PLAIN.values()), ops.PLAIN

@@ -39,6 +39,17 @@ BS = 750
 INTS = ("mult", "n_changed", "n_moving", "t_th")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work.  Its tensors are
+    small, and with the suite's workers each starting one OpenMP thread
+    per core the threads oversubscribe the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _repro_trajectory(docs, df, rows_state, max_iter):
     """repro's fit stepped on the host — the prologue's own iteration
     (``_device_iteration``) plus EstParams at iterations 1–2 — keeping the

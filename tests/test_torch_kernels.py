@@ -134,16 +134,71 @@ def test_segment_update_plain_matches_repro(shape):
                                atol=1e-4)
 
 
+def _full(ids):
+    """nnz of rows whose every slot is read."""
+    return torch.full((ids.shape[0],), ids.shape[1], dtype=torch.int32)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_rho_gather_plain_matches_repro(shape):
     ids, vals, means, assign = _inputs(*shape, seed=5)
-    rho = ref.rho_gather(_t(assign), _t(ids), _t(vals), _t(means))
+    rho = ref.rho_gather(_t(assign), _t(ids), _t(vals), _t(means),
+                         _full(ids))
     want = np.asarray(jref.rho_gather(assign, ids, vals, means))
     np.testing.assert_allclose(rho.numpy(), want, rtol=1e-5, atol=1e-5)
     assert (rho.numpy()[::4] == 0).all()             # assign = K reads 0
     p = jops.rho_gather(assign, ids, vals, means, interpret=True)
     np.testing.assert_allclose(rho.numpy(), np.asarray(p), rtol=1e-5,
                                atol=1e-5)
+
+
+def _rho_rows(p: int, seed: int):
+    """(assign, ids, vals, means, nnz) numpy: 192 rows of width p with a
+    random live length each (dead slots id 0, value 0), ids in [0, 3000),
+    K 50 and a sixth of the rows assigned K or beyond."""
+    rng = np.random.default_rng(seed)
+    b, d, k = 192, 3000, 50
+    nnz = rng.integers(0, p + 1, b).astype(np.int32)
+    nnz[0] = p
+    ids = rng.integers(0, d, (b, p)).astype(np.int32)
+    vals = (rng.random((b, p)) + 0.01).astype(np.float32)
+    past = np.arange(p)[None, :] >= nnz[:, None]
+    ids[past], vals[past] = 0, 0.0
+    means = rng.random((d, k)).astype(np.float32)
+    means[rng.random((d, k)) < 0.5] = 0.0
+    assign = rng.integers(0, k, b).astype(np.int32)
+    assign[::6] = k + rng.integers(0, 3, assign[::6].shape)
+    return assign, ids, vals, means, nnz
+
+
+@pytest.mark.parametrize("p", [33, 64, 431, 1100])
+def test_rho_gather_plain_equals_repro_bitwise(p):
+    """Rows of more than 32 slots: the plain ρ is ``repro``'s ρ bit for
+    bit (``xla_blocked.rho_gather``, what the CPU backend sums), windows
+    of 32 slots, then the partials, with one more window level past 1024
+    slots."""
+    from repro.kernels import xla_blocked as xb
+
+    a, i, v, m, n = _rho_rows(p, seed=p)
+    got = ref.rho_gather(_t(a), _t(i), _t(v), _t(m), _t(n))
+    want = np.asarray(xb.rho_gather(a, i, v, m))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy()[::6] == 0).all()
+
+
+@pytest.mark.parametrize("p", [7, 32])
+def test_rho_gather_plain_short_rows_near_repro(p):
+    """Rows of at most 32 slots: XLA's CPU emitter fuses each product into
+    its add (a fused multiply-add, sequential up to 18 slots, 8 lanes and
+    a tree at 24-32), which the port's rounded products do not repeat;
+    the sums agree to float32 rounding."""
+    from repro.kernels import xla_blocked as xb
+
+    a, i, v, m, n = _rho_rows(p, seed=p)
+    got = ref.rho_gather(_t(a), _t(i), _t(v), _t(m), _t(n))
+    want = np.asarray(xb.rho_gather(a, i, v, m))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    assert (got.numpy()[::6] == 0).all()
 
 
 def _dirty(ids, vals, seed):
@@ -171,11 +226,13 @@ def test_rho_gather_nnz_equals_live_vals(shape):
     docs = SparseDocs(_t(d_ids), _t(d_vals), _t(nnz), shape[2])
     assert not torch.equal(docs.live_vals(), docs.vals)
     got = ref.rho_gather(_t(assign), docs.ids, docs.vals, _t(means),
-                         nnz=docs.nnz)
-    want = ref.rho_gather(_t(assign), _t(ids), docs.live_vals(), _t(means))
+                         docs.nnz)
+    want = ref.rho_gather(_t(assign), _t(ids), docs.live_vals(), _t(means),
+                          _full(ids))
     assert torch.equal(got, want)
     assert not torch.equal(got, ref.rho_gather(_t(assign), docs.ids,
-                                               docs.vals, _t(means)))
+                                               docs.vals, _t(means),
+                                               _full(ids)))
     np.testing.assert_allclose(
         got.numpy(), np.asarray(jref.rho_gather(assign, ids, vals, means)),
         rtol=1e-5, atol=1e-5)
@@ -449,7 +506,7 @@ def test_ops_dispatch_cpu_to_plain_versions():
     ops.segment_update(ta, _docs(ids, vals, 300), k=37)
     ops.segment_update(ta, _docs(ids, vals, 300), k=37,
                        init=torch.zeros((300, 37)))
-    ops.rho_gather(ta, ti, tv, tm)
+    ops.rho_gather(ta, ti, tv, tm, _full(ids))
     ops.esicp_gather(ti, tv, tm, 100, 0.5, v_ta=torch.full((20,), 0.3))
     ops.sparse_sim(ti, tv, tm, square=True)
     sk = ops.doc_sketch(ti, tv, 300, 60)
@@ -466,6 +523,7 @@ def test_ops_validate_operands():
     with pytest.raises(TypeError, match="ids must be"):
         ops.sparse_sim(_t(ids).long(), _t(vals), _t(means))
     with pytest.raises(TypeError, match="means_t must be"):
-        ops.rho_gather(_t(assign), _t(ids), _t(vals), _t(means).double())
+        ops.rho_gather(_t(assign), _t(ids), _t(vals), _t(means).double(),
+                       _full(ids))
     with pytest.raises(ValueError, match="one entry per row"):
         ops.segment_update(_t(assign)[:3], _docs(ids, vals, 30), k=5)

@@ -38,6 +38,17 @@ BS = 750
 MODES = sorted(ta.ALGORITHMS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module's torch work.  Its tensors are
+    small, and with the suite's workers each starting one OpenMP thread
+    per core the threads oversubscribe the host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def warm(small_corpus):
     docs, df, _, _ = small_corpus

@@ -356,6 +356,28 @@ def test_store_fit_matches_repro_streaming(small, small_corpus):
     assert got.objective == pytest.approx(want.objective, rel=1e-5)
 
 
+def test_store_fit_mult_history_matches_repro(tiny, repro_full):
+    """The 400-document corpus, k 8, batch 100, ``repro``'s seed rows:
+    ρ_self sums in ``repro``'s order (rows of 58 slots), so Mult and |Z|
+    equal ``repro``'s at every iteration, where a lane-by-lane ρ parted at
+    iteration 3 (15,458 against 15,451); labels and ρ_self bit for bit."""
+    _, _, tdocs, rows = tiny
+    got = streaming_fit(DocStore.from_docs(tdocs, chunk_size=100), k=K_TINY,
+                        max_iter=20, batch_size=100, seed_rows=rows,
+                        device="cpu")
+    want = repro_full
+    assert got.n_iter == want.n_iter and got.converged == want.converged
+    for hw, hg in zip(want.history, got.history):
+        for f in ("iteration", "mult", "n_changed", "n_moving", "t_th",
+                  "v_th"):
+            assert hw[f] == hg[f], (f, hw["iteration"])
+        assert hg["n_candidates"] == round(hw["cpr"] * 400 * K_TINY)
+    np.testing.assert_array_equal(got.assign.numpy(),
+                                  np.asarray(want.assign))
+    np.testing.assert_array_equal(got.state.rho_self.numpy(),
+                                  np.asarray(want.state.rho_self))
+
+
 def test_minibatch_matches_repro_every_pass(tiny):
     docs, df, tdocs, rows = tiny
     jstore = JDocStore.from_docs(docs, chunk_size=100)
