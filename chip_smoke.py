@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py [--n-docs N] [--max-iter R] [--seed S]
-                          [--lm-batch B] [--lm-seq S]
+    python3 chip_smoke.py [--n-docs N] [--max-iter R] [--ivf-iter R]
+                          [--seed S] [--lm-batch B] [--lm-seq S]
 
 Needs one CUDA GPU of compute capability 9.0 (H100); exits non-zero
 without one, or when the package is missing beside this script.  Phases,
@@ -77,12 +77,30 @@ each of which fails the run on any error:
              beside the bound; the square variant also at t_th 0 (rows
              whose ids do not ascend), with its tail slots, distinct tail
              rows and means-row bytes moved printed.
+8a. two-level — ``two_level_fit`` (k 10,000, coarse_k 100 = √K, esicp,
+             coarse and cell fits cut to ``--ivf-iter`` iterations,
+             default 4) at the same widths, counters zeroed just before
+             the fit and read after the classifies: coarse and cell fit
+             seconds (a cell iteration with and without EstParams), cells
+             fitted, cmax, the peak (below 80 GB and the flat fit's); the
+             routed
+             classify at n_probe 1, 4 and K_c against the flat classify
+             (seconds, recall@1, mean and max ``scored``; every winner's
+             sim equal to the flat one, n_probe = K_c equal to the flat
+             classify bit for bit); the routed_scan kernel against its
+             plain version on one batch at n_probe 1 and 4, bit for bit;
+             the model behind a ``ClusterServer`` (one CUDA graph per
+             bucket, 8 clients, every answer ``classify_docs_routed``'s
+             bit for bit); ``ClusterEngine.refit``'s refusal.
 
 Then the out-of-core plane, the resident corpus moved off the card:
 
 9. streaming — the corpus written to a disk ``DocStore`` (chunks of
              32,768 rows, in a temporary directory, free space checked
-             first, deleted at the end) and reopened memmapped;
+             first, deleted at the end) and reopened memmapped; first the
+             two-level fit over it (a streaming coarse fit, ``SubsetStore``
+             cells) equal to phase 8a's bit for bit (labels, ρ_self, cells,
+             coarse and fine means); then
              ``streaming_fit`` (esicp, the main fit's seed rows), counters
              zeroed just before and read just after: the assignment after
              every iteration, ρ_self, the final means and every history
@@ -191,6 +209,8 @@ REPLACES = {
     "sketch_sim": "src/repro/kernels/sketch_sim.py:25",
     "flash_attention": "src/repro/kernels/flash_attention.py:66",
     "segment_update_init": "src/repro/kernels/segment_update.py:61",
+    # repro's routed scan is plain JAX (a lax.scan), no Pallas kernel.
+    "routed_scan": "src/repro/cluster/classify.py:114",
 }
 SOURCES = {
     "esicp_gather": "src/repro_torch/csrc/gather.cu",
@@ -204,6 +224,7 @@ SOURCES = {
     "sketch_sim": "src/repro_torch/csrc/sketch.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "segment_update_init": "src/repro_torch/csrc/segment_update.cu",
+    "routed_scan": "src/repro_torch/csrc/routed_scan.cu",
 }
 # The kernels each main-path run must launch.
 PATH_KERNELS = {
@@ -220,7 +241,16 @@ PATH_KERNELS = {
     "serving": ("sparse_sim", "segment_update", "rho_gather"),
     "store refit": ("sparse_sim", "segment_update", "segment_update_init",
                     "rho_gather"),
+    # the two-level fit (coarse and cell esicp fits) and routed classify
+    "two_level": ("esicp_gather", "esicp_filter", "segment_update",
+                  "rho_gather", "sparse_sim", "routed_scan"),
+    "two_level store": ("esicp_gather", "esicp_filter", "segment_update",
+                        "segment_update_init", "rho_gather"),
 }
+# The two-level phase: K_c = sqrt(K), the ratio of repro's IVF benchmark
+# (BENCH_ivf.json: K 4096, K_c 64).
+IVF_COARSE_K = 100
+IVF_PROBES = (1, 4, IVF_COARSE_K)
 INTS = ("mult", "n_candidates", "n_changed", "n_moving", "t_th")
 
 
@@ -769,7 +799,7 @@ def main_phase(torch, docs, df, max_iter: int):
     require(bool((sims >= model.rho_self - 1e-5).all()),
             "classify scored a doc below its own-centroid similarity")
     log(f"main path done in {time.perf_counter() - t0:.1f} s")
-    return launches, model, (labels, sims)
+    return launches, model, (labels, sims), peak
 
 
 def breakdown_phase(torch, docs, df, model, algo: str = "esicp",
@@ -1312,6 +1342,267 @@ def sketch_kernel_phase(torch, docs, model):
             f"{r['library_ms']}{extra_text(r)}) bitwise equal to plain")
     log(f"sketch kernel checks passed in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def _ivf_config(ivf_iter: int):
+    from repro_torch.cluster import ClusterConfig
+
+    return ClusterConfig(k=NYT_K, coarse_k=IVF_COARSE_K, n_probe=1,
+                         algo="esicp", max_iter=ivf_iter, batch_size=BATCH,
+                         chunk_size=STREAM_CHUNK)
+
+
+def _log_ivf_fit(torch, res, wall: float, peak: int, base: int,
+                 matrix: int) -> None:
+    model = res.model
+    meta = model.cell_meta
+    fitted = [m for m in meta if m["n_docs"]]
+    fine_s = [sum(h["elapsed_s"] for h in hs) for hs in res.cell_histories]
+    sizes = [m["n_docs"] for m in fitted]
+    # A cell iteration's seconds, with EstParams (iterations 1-2) and
+    # without.
+    est = [h["elapsed_s"] for hs in res.cell_histories for h in hs[:2]]
+    later = [h["elapsed_s"] for hs in res.cell_histories for h in hs[2:]]
+    log(f"  fit {wall:.3f} s: coarse fit {res.n_iter} iterations "
+        f"{sum(h['elapsed_s'] for h in res.history):.3f} s; {len(fitted)} "
+        f"of {model.coarse_k} cells fitted, the fine fits' sum "
+        f"{sum(fine_s):.3f} s (max {max(fine_s):.3f} s, iterations "
+        f"{sum(m['n_iter'] for m in fitted)}, "
+        f"{sum(m['converged'] for m in fitted)} converged); cell documents "
+        f"min {min(sizes)} median {int(statistics.median(sizes))} max "
+        f"{max(sizes)}; K_eff {model.index.k}, cmax "
+        f"{int(model.cell_sizes.max())}")
+    log(f"  a cell iteration: with EstParams (iterations 1-2) mean "
+        f"{statistics.mean(est):.4f} s over {len(est)}; later mean "
+        f"{statistics.mean(later) if later else 0.0:.4f} s over "
+        f"{len(later)}")
+    log(f"  peak device memory: {peak / 2**30:.2f} GiB ({peak / matrix:.3f} "
+        f"(D, K) matrices; above what was allocated before the fit "
+        f"{(peak - base) / matrix:.3f})")
+
+
+def ivf_phase(torch, docs, df, ivf_iter: int, seed: int, flat_peak: int):
+    """The two-level fit at the NYT widths (k 10,000, K_c 100), the routed
+    classify at n_probe 1, 4 and K_c against the flat classify, the
+    routed_scan kernel against its plain version, and the model behind a
+    ClusterServer.  Counters are zeroed before the fit and read after the
+    classifies.  Returns (launches with the graph replays, the
+    routed_scan row, the model)."""
+    import numpy as np
+
+    from repro_torch.cluster import classify_docs, classify_docs_routed
+    from repro_torch.cluster.two_level import two_level_fit
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import ClusterEngine, ClusterServer
+
+    t0 = phase(f"two-level: fit k={NYT_K} coarse_k={IVF_COARSE_K} esicp "
+               f"(max_iter {ivf_iter}) + routed classify, N={docs.n_docs}")
+    matrix = docs.dim * NYT_K * 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t = time.perf_counter()
+    res = two_level_fit(docs, _ivf_config(ivf_iter), df=df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    model = res.model
+    _log_ivf_fit(torch, res, wall, peak, base, matrix)
+    log(f"  the flat fit's peak (phase 5): {flat_peak / 2**30:.2f} GiB "
+        f"({flat_peak / matrix:.3f} (D, K) matrices)")
+    require(peak < 80e9, f"two-level fit: peak {peak} bytes above 80 GB")
+    require(peak <= flat_peak, "two-level fit: peak above the flat fit's")
+    require(int(model.cell_sizes.sum()) == model.index.k
+            and model.labels.shape == (docs.n_docs,)
+            and bool(((model.labels >= 0)
+                      & (model.labels < model.index.k)).all())
+            and bool(torch.isfinite(model.rho_self).all()),
+            "two-level fit: malformed model")
+    fit_counts = dict(ops.LAUNCHES)
+
+    def timed(fn):
+        fn()                                   # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    (a_flat, s_flat), flat_s = timed(lambda: classify_docs(
+        model.index, docs, batch_size=BATCH))
+    log(f"  flat classify over K_eff {model.index.k}: {flat_s:.4f} s")
+    for n_probe in IVF_PROBES:
+        (a, s, sc), secs = timed(lambda: classify_docs_routed(
+            model, docs, n_probe=n_probe, batch_size=BATCH, with_stats=True))
+        hit = a == a_flat
+        scf = sc.float()
+        log(f"  routed classify n_probe {n_probe}: {secs:.4f} s "
+            f"({flat_s / secs:.2f}x the flat), recall@1 against flat "
+            f"{float(hit.float().mean()):.6f}, scored mean "
+            f"{float(scf.mean()):.1f} max {int(sc.max())} of "
+            f"{model.index.k}")
+        require(torch.equal(s[hit], s_flat[hit]),
+                f"n_probe {n_probe}: a winner's sim differs from the flat")
+        require(bool((s <= s_flat).all()),
+                f"n_probe {n_probe}: a routed sim above the flat best")
+        require(int(sc.max()) <= IVF_COARSE_K
+                + n_probe * int(model.cell_sizes.max()), "scored too high")
+        if n_probe == IVF_COARSE_K:
+            require(torch.equal(a, a_flat) and torch.equal(s, s_flat),
+                    "n_probe = K_c differs from the flat classify")
+    torch.cuda.synchronize()
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    log(f"  kernel launches: fit {fit_counts}, fit + classifies {launches}")
+    log(f"  plain-version calls: {plain}")
+    require(all(launches[n] > 0 for n in PATH_KERNELS["two_level"]),
+            f"two-level: a kernel of its path never launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"two-level: a plain version ran: {plain}")
+    log("  every winner's sim equals the flat one bit for bit; n_probe = "
+        "K_c is the flat classify bit for bit")
+
+    # The routed scan on one batch, n_probe 1 and 4.
+    coarse_t, means_t, starts, sizes, cmax = model._routed_operands()
+    b_ids = docs.ids[:BATCH].contiguous()
+    b_vals = docs.vals[:BATCH].contiguous()
+    b_nnz = docs.nnz[:BATCH].contiguous()
+    csims = ops.sparse_sim(b_ids, b_vals, coarse_t)[0]
+    order = torch.sort(csims, dim=1, descending=True, stable=True).indices
+    row = None
+    for n_probe in (1, 4):
+        cells = order[:, :n_probe].to(torch.int32).contiguous()
+        args = (b_ids, b_vals, b_nnz, means_t, cells, starts, sizes, cmax)
+        got = ops.routed_scan(*args)
+        want = ref.routed_scan(*args)
+        for nm, g, w in zip(("assign", "best", "scored"), got, want):
+            check_equal(torch, f"routed_scan.{nm} n_probe {n_probe}", g, w)
+        check_equal(torch, "routed_scan vs classify_docs_routed", got[0],
+                    classify_docs_routed(model, docs.slice_rows(0, BATCH),
+                                         n_probe=n_probe)[0])
+        # The work this batch needs: a multiply-add per live tuple and
+        # live candidate; the bytes: each (term, probed cell) block of
+        # means once, the live tuples, the per-row operands and outputs.
+        live = (torch.arange(docs.pad_width, device=docs.device)[None, :]
+                < b_nnz[:, None]) & (b_vals != 0)
+        n_live = live.sum(1)
+        cand = sizes[cells.long()].sum(1)
+        flops = 2 * float((n_live * cand).sum())
+        pairs = torch.unique((b_ids.long()[:, :, None] * IVF_COARSE_K
+                              + cells.long()[:, None, :])[live])
+        blocks = float(sizes[(pairs % IVF_COARSE_K)].double().sum()) * 4
+        n_bytes = (blocks + int(n_live.sum()) * 8
+                   + BATCH * (4 + 4 * n_probe + 12) + IVF_COARSE_K * 8)
+        r = dict(max_abs_err=0.0,
+                 ms=time_ms(torch, lambda: ops.routed_scan(*args)),
+                 plain_ms=time_ms(torch, lambda: ref.routed_scan(*args),
+                                  reps=3),
+                 library_ms=None, bound=bound_ms(n_bytes, flops),
+                 extra=dict(n_probe=n_probe, cmax=cmax,
+                            mean_candidates=float(cand.float().mean()),
+                            means_block_bytes=blocks))
+        log(f"  routed_scan n_probe {n_probe}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms by "
+            f"{r['bound'][1]}: {flops:.4g} flops, {n_bytes:.4g} bytes of "
+            f"which {blocks:.4g} means blocks), bitwise equal to plain")
+        if row is None:
+            row = r
+        else:
+            row["extra"].update(ms_n_probe_4=r["ms"],
+                                bound_ms_n_probe_4=r["bound"][0])
+    del csims, order
+
+    # Routed serving: 8 clients against the two-level model.
+    rows_h = (docs.ids.cpu().numpy(), docs.vals.cpu().numpy(),
+              docs.nnz.cpu().numpy())
+    want_a, want_s = (x.cpu().numpy() for x in classify_docs_routed(
+        model, docs, batch_size=BATCH))
+    srv = ClusterServer(max_live_batches=4, batch_timeout_s=0.002,
+                        n_post_workers=2)
+    try:
+        t = time.perf_counter()
+        sv = srv.load("ivf", model, pad_width=docs.pad_width)
+        torch.cuda.synchronize()
+        ones = dict.fromkeys(sv.sorted_batch_sizes, 1)
+        log(f"  serving: built and captured in {time.perf_counter() - t:.3f}"
+            f" s; capture s by bucket "
+            f"{ {b: round(v, 4) for b, v in sv.capture_s.items()} }")
+        require(sv.capture_counts() == ones, f"captures {sv.capture_counts()}")
+        before = dict(ops.LAUNCHES)
+        sv.reset_replay_counts()
+        lat, wall, answers = _drive_clients(
+            srv, "ivf", rows_h, _client_plan(docs.n_docs, seed + 2,
+                                             SERVE_REQUESTS))
+        replays = sv.replay_counts()
+        log(f"  serving traffic: {_traffic_line(srv, 'ivf', answers, lat, wall)}")
+        log(f"  replays by bucket {replays}; captures {sv.capture_counts()}")
+        require(ops.LAUNCHES == before, "an eager launch during the traffic")
+        require(sv.capture_counts() == ones, "a bucket was captured again")
+        require(sum(replays.values()) == srv.stats("ivf")["n_batches"],
+                f"replays {replays} against the batches")
+        require(srv.stats("ivf")["n_failures"] == 0, "a request failed")
+        for rows, a, s in answers:
+            require(np.array_equal(a, want_a[rows])
+                    and np.array_equal(s, want_s[rows]),
+                    "a served answer differs from classify_docs_routed")
+        log(f"  {len(answers)} served answers equal classify_docs_routed "
+            f"bit for bit")
+    finally:
+        srv.close()
+    del sv
+    try:
+        ClusterEngine.from_model(model, batch_size=BATCH).refit(docs)
+        require(False, "ClusterEngine.refit ran on a two-level model")
+    except NotImplementedError as e:
+        require("coarse" in str(e), f"refit refused without naming the "
+                f"coarse level: {e}")
+        log(f"  ClusterEngine.refit refuses the two-level model: {e}")
+    for name in ("sparse_sim", "routed_scan"):
+        launches[name] += sum(replays.values())
+    log(f"two-level phase done in {time.perf_counter() - t0:.1f} s")
+    return launches, row, model
+
+
+def ivf_store_phase(torch, store, df, ivf_iter: int, model) -> dict:
+    """The two-level fit over the disk store (coarse streaming fit, cells as
+    SubsetStore views) against the resident two-level fit, bit for bit."""
+    from repro_torch.cluster.two_level import two_level_fit
+    from repro_torch.kernels import ops
+
+    t0 = phase(f"two-level over the disk store (SubsetStore cells), "
+               f"N={store.n_docs}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t = time.perf_counter()
+    res = two_level_fit(store, _ivf_config(ivf_iter), df=df)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    _log_ivf_fit(torch, res, wall, torch.cuda.max_memory_allocated(), base,
+                 store.dim * NYT_K * 4)
+    log(f"  kernel launches: {launches}; plain-version calls {plain}")
+    require(all(launches[n] > 0 for n in PATH_KERNELS["two_level store"]),
+            f"two-level store: a kernel never launched: {launches}")
+    require(all(v == 0 for v in plain.values()),
+            f"two-level store: a plain version ran: {plain}")
+    got = res.model
+    require(torch.equal(got.labels, model.labels)
+            and torch.equal(got.rho_self, model.rho_self)
+            and got.cell_meta == model.cell_meta
+            and torch.equal(got.coarse_index.means_t,
+                            model.coarse_index.means_t),
+            "two-level store fit: labels, ρ, cells or coarse means differ "
+            "from the resident fit")
+    _, err, same = chunked_compare(torch, got.index.means_t,
+                                   model.index.means_t, 0.0)
+    require(same, f"two-level store fit: fine means differ (max {err})")
+    log("  labels, ρ_self, cell provenance, coarse and fine means equal the "
+        "resident two-level fit bit for bit")
+    log(f"two-level store phase done in {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _same_history(a, b, what: str) -> None:
@@ -2044,6 +2335,9 @@ def main() -> int:
                     help="iterations of the sketch and bounds-esicp fits")
     ap.add_argument("--small-iter", type=int, default=8,
                     help="iterations of the small cross-check's other modes")
+    ap.add_argument("--ivf-iter", type=int, default=4,
+                    help="max_iter of the two-level fit's coarse and cell "
+                         "fits")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-batch", type=int, default=2,
                     help="batch of the gemma3-1b prefill")
@@ -2077,7 +2371,8 @@ def main() -> int:
 
     rows = kernel_phase(torch, docs, args.seed)
     variant_launches, small = small_phase(torch, args.seed, args.small_iter)
-    launches, model, cls = main_phase(torch, docs, df, args.max_iter)
+    launches, model, cls, flat_peak = main_phase(torch, docs, df,
+                                                 args.max_iter)
     breakdown_phase(torch, docs, df, model)
     serve_launches, refit_rec = serving_phase(torch, docs, model, cls,
                                               args.seed)
@@ -2103,6 +2398,16 @@ def main() -> int:
     rows.update(sketch_kernel_phase(torch, docs, model))
     fitted_rho(torch, docs, model, rows["rho_gather"])
     del model
+    torch.cuda.empty_cache()
+    got, rows["routed_scan"], ivf = ivf_phase(torch, docs, df, args.ivf_iter,
+                                              args.seed, flat_peak)
+    launches["routed_scan"] = got["routed_scan"]
+    paths["routed_scan"] = ["two-level routed classify",
+                            "two-level serving: graph replays"]
+    for name in PATH_KERNELS["two_level"][:-1]:
+        launches[name] += got[name]
+        paths[name].append("two-level fit" if name != "sparse_sim"
+                           else "two-level classify and serving")
     for name, (count, algo) in variant_launches.items():
         launches[name] = count
         paths[name] = [f"small cross-check {algo} fit on the card"]
@@ -2113,12 +2418,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
         store = write_store(docs_h, tmp)
+        got = ivf_store_phase(torch, store, df, args.ivf_iter, ivf)
+        for name in PATH_KERNELS["two_level store"]:
+            launches[name] += got[name]
+            paths.setdefault(name, []).append("two-level fit over the store")
+        del ivf
+        torch.cuda.empty_cache()
         got, rows["segment_update_init"], seed_rows, refit_got = \
             streaming_phase(torch, store, docs_h, df, resident, refit_rec,
                             args.max_iter)
         del resident, refit_rec
-        launches["segment_update_init"] = got["segment_update_init"]
-        paths["segment_update_init"] = ["streaming esicp fit"]
+        launches["segment_update_init"] += got["segment_update_init"]
+        paths["segment_update_init"] = ["two-level fit over the store",
+                                        "streaming esicp fit"]
         for name in PATH_KERNELS["store refit"]:
             launches[name] += refit_got[name]
             paths[name].append("store refit")

@@ -7,24 +7,35 @@
     engine = ClusterEngine.from_model(model)   # serve, refit, hot-swap
 
 ``docs`` may be resident SparseDocs or a DocStore (the streaming fit).
+``ClusterConfig(coarse_k=K_c, n_probe=)`` fits the two-level IVF model
+(:class:`TwoLevelFittedModel`), whose ``predict`` is
+:func:`classify_docs_routed`; :func:`two_level_from_means` wraps given
+vectors as its fine level.
 """
 from __future__ import annotations
 
-from repro_torch.cluster.classify import classify_docs, transform_docs
+from repro_torch.cluster.classify import (classify_docs,
+                                          classify_docs_routed,
+                                          transform_docs)
 from repro_torch.cluster.config import ClusterConfig
 from repro_torch.cluster.estimator import SphericalKMeans
-from repro_torch.cluster.model import FittedModel, load_model
+from repro_torch.cluster.model import (FittedModel, TwoLevelFittedModel,
+                                       load_model)
 from repro_torch.cluster.strategies import (STRATEGIES, SingleHostStrategy,
                                             StreamingStrategy,
+                                            TwoLevelStrategy,
                                             resolve_strategy)
+from repro_torch.cluster.two_level import two_level_from_means
 
 
 def fit(docs, config: ClusterConfig, *, df=None, seed_rows=None,
         keep_trajectory: bool = False) -> FittedModel:
-    """(docs, ClusterConfig) -> FittedModel, on ``config.device``, through
-    the estimator.  ``seed_rows`` optionally names the K documents that
-    seed the centroids; ``keep_trajectory`` keeps the assignment after
-    every iteration (on the host) in ``FittedModel.trajectory``."""
+    """(docs, ClusterConfig) -> FittedModel (a TwoLevelFittedModel when
+    ``coarse_k`` is set), on ``config.device``, through the estimator.
+    ``seed_rows`` optionally names the K documents that seed the
+    centroids (a two-level fit takes a callable, ``TwoLevelStrategy``);
+    ``keep_trajectory`` keeps the assignment after every iteration (on
+    the host) in ``FittedModel.trajectory``."""
     return SphericalKMeans.from_config(config).fit(
         docs, df=df, seed_rows=seed_rows,
         keep_trajectory=keep_trajectory).model_
@@ -32,8 +43,9 @@ def fit(docs, config: ClusterConfig, *, df=None, seed_rows=None,
 
 __all__ = ["ClusterConfig", "ClusterEngine", "FittedModel", "STRATEGIES",
            "SingleHostStrategy", "SphericalKMeans", "StreamingStrategy",
-           "classify_docs", "fit", "load_model", "resolve_strategy",
-           "transform_docs"]
+           "TwoLevelFittedModel", "TwoLevelStrategy", "classify_docs",
+           "classify_docs_routed", "fit", "load_model", "resolve_strategy",
+           "transform_docs", "two_level_from_means"]
 
 
 def __getattr__(name):

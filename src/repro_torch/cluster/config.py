@@ -11,7 +11,6 @@ from repro_torch.core.meanindex import StructuralParams
 # ROADMAP Queue 1 items of the runtimes the port does not have yet.
 NOT_PORTED = {
     "mesh": "the mesh runtime (ROADMAP Queue 1 item 7)",
-    "two_level": "two-level IVF (ROADMAP Queue 1 item 5)",
     "tune": "the autotuner (ROADMAP Queue 1 item 6)",
 }
 
@@ -28,9 +27,12 @@ class ClusterConfig:
     seed.  checkpoint_dir / checkpoint_every: the streaming fit's resumable
     snapshots, every N chunks inside an epoch and at every epoch boundary.
     device: 'cuda' (the default; raises without a GPU) or 'cpu' (the plain
-    PyTorch versions of the kernels).  mesh, coarse_k and tune != 'off'
-    name runtimes the port does not have yet: they raise
-    NotImplementedError."""
+    PyTorch versions of the kernels).  coarse_k: None (a flat fit) or
+    2 <= K_c < k, the two-level IVF fit (K_c coarse cells, then a fine fit
+    per cell; the 'two_level' strategy).  n_probe: the cells the routed
+    classify scores per document, 1 <= n_probe <= coarse_k (coarse_k
+    probes every cell: the flat classify).  mesh and tune != 'off' name
+    runtimes the port does not have yet: they raise NotImplementedError."""
 
     k: int
     algo: str = "esicp"
@@ -47,6 +49,7 @@ class ClusterConfig:
     device: str = "cuda"
     mesh: Any = None
     coarse_k: int | None = None
+    n_probe: int = 1
     tune: str = "off"
 
     def __post_init__(self):
@@ -87,6 +90,26 @@ class ClusterConfig:
         if self.tune not in ("off", "cached", "search"):
             raise ValueError(f"tune must be 'off', 'cached' or 'search', "
                              f"got {self.tune!r}")
+        if self.coarse_k is not None:
+            if self.coarse_k < 2:
+                raise ValueError(
+                    f"coarse_k must be >= 2 (a one-cell coarse level is the "
+                    f"flat fit; pass coarse_k=None for that), got "
+                    f"{self.coarse_k}")
+            if self.coarse_k >= self.k:
+                raise ValueError(
+                    f"coarse_k must be < k (each coarse cell holds at least "
+                    f"one fine cluster), got coarse_k={self.coarse_k} >= "
+                    f"k={self.k}")
+            if self.mesh is not None:
+                raise ValueError(
+                    "coarse_k (the two-level strategy) cannot be combined "
+                    "with mesh= yet; run the coarse/fine fits single-host "
+                    "or streaming")
+        if not 1 <= self.n_probe <= (self.coarse_k or self.n_probe):
+            raise ValueError(
+                f"n_probe must be in [1, coarse_k={self.coarse_k}], got "
+                f"{self.n_probe}")
         if self.tune != "off":
             raise NotImplementedError(
                 f"tune={self.tune!r} needs {NOT_PORTED['tune']}")

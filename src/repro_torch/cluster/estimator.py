@@ -25,8 +25,10 @@ _FITTED_ATTRS = frozenset({
 class SphericalKMeans:
     """algo: one of the nine modes; params: 'auto', a StructuralParams or
     None; algo_mode: 'full' or 'minibatch'; device: 'cuda' (default) or
-    'cpu'.  mesh=, coarse_k= and tune != 'off' raise NotImplementedError
-    at fit (their runtimes are not ported yet)."""
+    'cpu'; coarse_k / n_probe: the two-level IVF fit, whose ``model_`` is
+    the nested :class:`TwoLevelFittedModel`.  mesh= and tune != 'off'
+    raise NotImplementedError at fit (their runtimes are not ported
+    yet)."""
 
     def __init__(self, k: int, *, algo: str = "esicp", params="auto",
                  device: str = "cuda", batch_size: int = 4096,
@@ -35,7 +37,7 @@ class SphericalKMeans:
                  chunk_size: int = 1024, algo_mode: str = "full",
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int = 5, tune: str = "off",
-                 coarse_k: int | None = None):
+                 coarse_k: int | None = None, n_probe: int = 1):
         self.k = k
         self.algo = algo
         self.params = params
@@ -52,6 +54,7 @@ class SphericalKMeans:
         self.checkpoint_every = checkpoint_every
         self.tune = tune
         self.coarse_k = coarse_k
+        self.n_probe = n_probe
 
     @property
     def config(self) -> ClusterConfig:
@@ -63,7 +66,8 @@ class SphericalKMeans:
             est_iters=self.est_iters, seed=self.seed,
             algo_mode=self.algo_mode, checkpoint_dir=self.checkpoint_dir,
             checkpoint_every=self.checkpoint_every, device=self.device,
-            mesh=self.mesh, coarse_k=self.coarse_k, tune=self.tune)
+            mesh=self.mesh, coarse_k=self.coarse_k, n_probe=self.n_probe,
+            tune=self.tune)
 
     @classmethod
     def from_config(cls, config: ClusterConfig) -> SphericalKMeans:
@@ -75,19 +79,21 @@ class SphericalKMeans:
                    algo_mode=config.algo_mode,
                    checkpoint_dir=config.checkpoint_dir,
                    checkpoint_every=config.checkpoint_every,
-                   tune=config.tune, coarse_k=config.coarse_k)
+                   tune=config.tune, coarse_k=config.coarse_k,
+                   n_probe=config.n_probe)
 
     def fit(self, docs, df=None, seed_rows=None, *,
             keep_trajectory: bool = False) -> SphericalKMeans:
         """Cluster resident SparseDocs or a DocStore; returns ``self``.
         ``seed_rows`` names the K seed documents (else drawn from
-        ``seed``); ``keep_trajectory`` keeps the assignment after every
-        iteration in ``model_.trajectory``."""
+        ``seed``; a two-level fit takes a callable, see
+        ``TwoLevelStrategy``); ``keep_trajectory`` keeps the assignment
+        after every iteration in ``model_.trajectory``."""
         cfg = self.config
         strategy = resolve_strategy(cfg, docs)
         res = strategy.fit(docs, cfg, df=df, seed_rows=seed_rows,
                            keep_trajectory=keep_trajectory)
-        self.model_ = FittedModel(
+        self.model_ = getattr(res, "model", None) or FittedModel(
             index=res.state.index, labels=res.assign,
             rho_self=res.state.rho_self, history=list(res.history),
             converged=res.converged, n_iter=res.n_iter, algo=cfg.algo,

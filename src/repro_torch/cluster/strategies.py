@@ -3,7 +3,9 @@
 ``single_host`` is the resident Lloyd fit (core/lloyd.py:lloyd_fit);
 ``streaming`` the out-of-core fit over a DocStore
 (core/lloyd.py:streaming_fit), selected by a DocStore input or by
-``algo_mode='minibatch'``.  ``mesh`` and ``two_level`` are not ported yet.
+``algo_mode='minibatch'``; ``two_level`` the nested IVF fit
+(cluster/two_level.py), selected by ``coarse_k``, whose coarse and cell
+fits run through the other two.  ``mesh`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -47,8 +49,32 @@ class StreamingStrategy:
             keep_trajectory=keep_trajectory)
 
 
+class TwoLevelStrategy:
+    """The nested IVF fit: its result carries the nested artifact
+    (``model``), which the estimator adopts.  ``seed_rows`` is a callable
+    ``seed_rows(n_docs, k, seed=seed)`` for the coarse fit and every cell
+    (:func:`repro_torch.cluster.two_level.two_level_fit`)."""
+
+    name = "two_level"
+
+    def fit(self, docs, config: ClusterConfig, df=None, seed_rows=None,
+            keep_trajectory: bool = False):
+        from repro_torch.cluster.two_level import two_level_fit
+
+        if config.coarse_k is None:
+            raise ValueError("TwoLevelStrategy needs ClusterConfig("
+                             "coarse_k=...)")
+        if seed_rows is not None and not callable(seed_rows):
+            raise TypeError("a two-level fit takes seed_rows as a callable "
+                            "seed_rows(n_docs, k, seed=seed)")
+        if keep_trajectory:
+            raise ValueError("a two-level fit keeps no trajectory")
+        return two_level_fit(docs, config, df=df, seed_rows=seed_rows)
+
+
 STRATEGIES = {"single_host": SingleHostStrategy(),
-              "streaming": StreamingStrategy()}
+              "streaming": StreamingStrategy(),
+              "two_level": TwoLevelStrategy()}
 
 
 def resolve_strategy(config: ClusterConfig, docs=None):

@@ -27,6 +27,13 @@
 // then reads window w's slot o from bank (w + o) mod 32); 8 lanes sum a
 // window each, and every lane folds the 8 partials into the level-2 and
 // final sums in order by shuffles.  Rows up to 32 x 32 x 32 slots.
+//
+// A row of at most 32 slots is summed in repro's other order, that of XLA's
+// vectorised CPU loop with each product contracted into its add
+// (kernels/ref.py short_row_stages, short_row_sum): the warp stages the
+// row's values and means entries, and lane 0 runs the stages (lanes
+// accumulators, slot j to lane j mod lanes, folded by halving) and the
+// remaining slots with __fmaf_rn.
 #include <cuda_runtime.h>
 
 namespace {
@@ -38,6 +45,41 @@ constexpr int kWin = 32;              // slots (or partials) in a window
 constexpr int kGroup = 8;             // windows staged at a time
 constexpr int kStride = kWin + 1;     // a staged window, padded
 constexpr int kMaxWidth = kWin * kWin * kWin;
+
+// The stages of a row of at most kWin slots: (lanes, slots) twice, a
+// count of 0 for a stage that does not run.
+struct ShortOrder {
+  int lanes[2];
+  int count[2];
+};
+
+ShortOrder short_order_of(int P, int K) {
+  if (P <= 18 || (K == 1 && P <= 21)) return {{1, 1}, {0, 0}};
+  if (P == 19) return {{8, 2}, {16, 2}};
+  if (P <= 23) return {{4, 4}, {16, 4}};
+  return {{8, 1}, {P / 8 * 8, 0}};
+}
+
+__device__ float short_row_sum(const float* v, const float* m, int P,
+                               ShortOrder o) {
+  float acc = 0.0f;
+  int pos = 0;
+  for (int s = 0; s < 2; ++s) {
+    const int w = o.lanes[s], c = o.count[s];
+    if (c == 0) continue;
+    float lane[8];
+    lane[0] = acc;
+    for (int i = 1; i < 8; ++i) lane[i] = 0.0f;
+    for (int j = 0; j < c; ++j)
+      lane[j % w] = __fmaf_rn(v[pos + j], m[pos + j], lane[j % w]);
+    for (int h = w / 2; h >= 1; h /= 2)
+      for (int i = 0; i < h; ++i) lane[i] = __fadd_rn(lane[i], lane[i + h]);
+    acc = lane[0];
+    pos += c;
+  }
+  for (int j = pos; j < P; ++j) acc = __fmaf_rn(v[j], m[j], acc);
+  return acc;
+}
 
 __device__ __forceinline__ int bin_of(int a, int K) {
   return static_cast<unsigned>(a) < static_cast<unsigned>(K) ? a : K;
@@ -98,7 +140,8 @@ rho_gather_kernel(const int* __restrict__ order,
                   const int* __restrict__ assign, const int* __restrict__ nnz,
                   const int* __restrict__ ids, const float* __restrict__ vals,
                   const float* __restrict__ means_t, int B, int P, int D,
-                  int K, int lo1, int lo2, float* __restrict__ out) {
+                  int K, int lo1, int lo2, ShortOrder short_order,
+                  float* __restrict__ out) {
   __shared__ float stage[kWarps][kGroup * kStride];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * kWarps + warp;
@@ -111,6 +154,19 @@ rho_gather_kernel(const int* __restrict__ order,
     const size_t row = static_cast<size_t>(b) * P;
     const float* col = means_t + a;
     float* buf = stage[warp];
+    if (P <= kWin) {
+      const bool in = lane < n;
+      const float v = in ? vals[row + lane] : 0.0f;
+      const int id = in ? ids[row + lane] : 0;
+      const bool live = v != 0.0f && id >= 0 && id < D;
+      buf[lane] = live ? v : 0.0f;
+      buf[kStride + lane] =
+          live ? __ldg(col + static_cast<size_t>(id) * K) : 0.0f;
+      __syncwarp();
+      if (lane == 0)
+        out[b] = short_row_sum(buf, buf + kStride, P, short_order);
+      return;
+    }
     // Level-1 windows 0 .. w_end-1 hold the live slots (slot p sits at
     // padded position p + lo1); window w is in level-2 window (w + lo2)/32.
     const int w_end = n > 0 ? (n - 1 + lo1) / kWin + 1 : 0;
@@ -191,7 +247,7 @@ extern "C" int rho_gather_launch(const void* assign, const void* ids,
   rho_gather_kernel<<<(B + kWarps - 1) / kWarps, kThreads, 0, s>>>(
       order, a, static_cast<const int*>(nnz), static_cast<const int*>(ids),
       static_cast<const float*>(vals), static_cast<const float*>(means_t), B,
-      P, D, K, lo1, lo2, static_cast<float*>(out));
+      P, D, K, lo1, lo2, short_order_of(P, K), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

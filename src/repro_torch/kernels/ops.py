@@ -21,7 +21,8 @@ from repro_torch.kernels import ref
 
 KERNELS = ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
            "sparse_sim", "esicp_gather_ta", "sparse_sim_square", "doc_sketch",
-           "sketch_sim", "flash_attention", "segment_update_init")
+           "sketch_sim", "flash_attention", "segment_update_init",
+           "routed_scan")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN = dict.fromkeys(KERNELS, 0)
 
@@ -216,8 +217,9 @@ def rho_gather(assign, ids, vals, means_t, nnz):
 
     ``nnz`` (B,) int32 limits row b to its slots [0, nnz[b]) (a caller
     whose rows are all live passes P).  Each row sums in ``repro``'s
-    windowed float32 order (:func:`repro_torch.kernels.ref.window_sum`)
-    over its padded width, which the kernel takes up to
+    float32 order over its padded width (:func:`repro_torch.kernels.ref.
+    window_sum`, or ``short_row_sum`` up to 32 slots), which the kernel
+    takes up to
     :data:`repro_torch.kernels.rho_gather.MAX_WIDTH` slots.
     """
     _check_tuples(ids, vals)
@@ -248,6 +250,50 @@ def rho_gather(assign, ids, vals, means_t, nnz):
                     scratch, out)
         LAUNCHES["rho_gather"] += 1
     return out
+
+
+def routed_scan(ids, vals, nnz, means_t, cells, starts, sizes, cmax: int):
+    """Two-level routed classify of a (B, P) batch -> (assign (B,) int32
+    global fine ids, best (B,) float32, scored (B,) int32).
+
+    ``cells`` (B, n_probe) int32 are each row's probed coarse cells, best
+    first; cell c's fine centroids are ``means_t``'s columns
+    [starts[c], starts[c] + sizes[c]) (``starts``/``sizes`` (K_c,) int32,
+    every size in [1, cmax]).  Rows read their slots [0, nnz).  The kernel
+    trusts cells, starts and sizes to lie in range (they come from the
+    model and the coarse top-n): checking them would cost a host sync.
+    """
+    _check_tuples(ids, vals)
+    _need(nnz, "nnz", torch.int32, 1)
+    _need(means_t, "means_t", torch.float32, 2)
+    _need(cells, "cells", torch.int32, 2)
+    _need(starts, "starts", torch.int32, 1)
+    _need(sizes, "sizes", torch.int32, 1)
+    b = ids.shape[0]
+    if nnz.shape[0] != b or cells.shape[0] != b:
+        raise ValueError("nnz and cells must have one entry per row")
+    if starts.shape != sizes.shape or cells.shape[1] < 1 or cmax < 1:
+        raise ValueError("starts and sizes must be (K_c,), cells (B, "
+                         "n_probe >= 1), cmax >= 1")
+    operands = [("ids", ids), ("vals", vals), ("nnz", nnz),
+                ("means_t", means_t), ("cells", cells), ("starts", starts),
+                ("sizes", sizes)]
+    if not _on_cuda(*(t for _, t in operands)):
+        PLAIN["routed_scan"] += 1
+        return ref.routed_scan(ids, vals, nnz, means_t, cells, starts, sizes,
+                               cmax)
+    from repro_torch.kernels import routed_scan as kern
+
+    _contiguous(*operands)
+    dev = ids.device
+    assign = torch.empty((b,), dtype=torch.int32, device=dev)
+    best = torch.empty((b,), dtype=torch.float32, device=dev)
+    scored = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b:
+        kern.launch(ids, vals, nnz, means_t, cells, starts, sizes, cmax,
+                    assign, best, scored)
+        LAUNCHES["routed_scan"] += 1
+    return assign, best, scored
 
 
 def doc_sketch(ids, vals, dim: int, sketch_size: int):

@@ -18,8 +18,12 @@ for bit where the kernel's order is fixed:
 * ``esicp_filter`` — elementwise;
 * ``segment_update`` — every λ entry sums its tuples in row order (from
   +0, or onto ``init``);
+* ``routed_scan`` — every candidate walks the row's live slots in order,
+  as ``sparse_sim`` does for its column;
 * ``rho_gather`` — each row sums its products in :func:`window_sum`'s
-  order over its full padded width (``repro``'s float32 order).
+  order over its full padded width (``repro``'s float32 order); a row of
+  at most 32 slots in :func:`short_row_sum`'s order of fused
+  multiply-adds, which the kernel takes with ``__fmaf_rn``.
 
 ``flash_attention`` is the exception: it materialises the (Sq, Sk) scores
 and softmax, as ``repro/kernels/ref.py:flash_attention`` does, and so
@@ -106,6 +110,37 @@ def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False,
     return rho12, y, sims, counts
 
 
+def routed_scan(ids, vals, nnz, means_t, cells, starts, sizes, cmax: int):
+    """Two-level routed classify of a batch -> (assign (B,) int32, best
+    (B,) float32, scored (B,) int32).
+
+    Candidate j = r·cmax + s of row b is column starts[c] + s of cell
+    c = cells[b, r] when s < sizes[c], else a dead slot at -inf.  Each
+    live candidate sums v·m over the row's slots [0, nnz[b]) in order;
+    ``assign`` is the first maximum's column (probe rank major, then
+    slot), ``scored`` K_c + Σ_r sizes[cells[b, r]].
+    """
+    b, p = ids.shape
+    slot = torch.arange(cmax, device=ids.device)
+    cl = cells.long()
+    psize = sizes[cl]
+    valid = (slot < psize[:, :, None]).reshape(b, -1)
+    cols = torch.where(valid, (starts[cl][:, :, None] + slot).reshape(b, -1),
+                       0).long()
+    sims = torch.zeros(cols.shape, dtype=torch.float32, device=ids.device)
+    for s, e in _row_chunks(b, cols.shape[1]):
+        n = nnz[s:e]
+        for q in range(min(int(n.max()), p)):
+            live = q < n
+            v = torch.where(live, vals[s:e, q], 0.0)
+            i = torch.where(live, ids[s:e, q], 0).long()
+            sims[s:e] += v[:, None] * means_t[i[:, None], cols[s:e]]
+    sims = torch.where(valid, sims, -torch.inf)
+    j = torch.argmax(sims, dim=1, keepdim=True)
+    return (cols.gather(1, j)[:, 0].to(torch.int32), sims.gather(1, j)[:, 0],
+            (starts.shape[0] + psize.sum(dim=1)).to(torch.int32))
+
+
 def esicp_filter(rho12, y, rho_max, col_ok, v_th):
     """ub = rho12 + y·v_th; mask = (ub > rho_max[b]) & col_ok (bool);
     count[b] = Σ_k mask (int32)."""
@@ -138,9 +173,10 @@ def rho_gather(assign, ids, vals, means_t, nnz):
     Row b reads only its slots [0, nnz[b]) (a row whose slots are all live
     passes nnz = P); a slot adds v·μ[id, assign_b] when v != 0 and id lies
     in [0, D).  Each row's products, +0 at every other slot of its padded
-    width P, are summed in :func:`window_sum`'s order: ``repro``'s
-    ``jnp.sum(vals * picked, axis=1)`` bit for bit.  The window bounds
-    depend on P alone, and the +0 slots change no partial sum."""
+    width P, are summed in :func:`window_sum`'s order (P > 32) or
+    :func:`short_row_sum`'s (P <= 32): ``repro``'s
+    ``jnp.sum(vals * picked, axis=1)`` bit for bit.  The order depends on
+    P (and K) alone, and the +0 slots change no partial sum."""
     b, p = ids.shape
     d, k = means_t.shape
     out = torch.zeros((b,), dtype=torch.float32, device=ids.device)
@@ -154,8 +190,74 @@ def rho_gather(assign, ids, vals, means_t, nnz):
         live = ((slots < nnz[s:e, None]) & ok[s:e, None] & (vals[s:e] != 0)
                 & (i >= 0) & (i < d))
         m = means_t[torch.where(live, i, 0).long(), col[s:e, None]]
-        out[s:e] = window_sum(torch.where(live, vals[s:e] * m, 0.0).t())
+        v = torch.where(live, vals[s:e], 0.0)
+        if p <= WINDOW:
+            out[s:e] = short_row_sum(v, torch.where(live, m, 0.0), k)
+        else:
+            out[s:e] = window_sum((v * m).t())
     return out
+
+
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Exact float32 fused multiply-add RN(a·b + c) on any device (what
+    ``__fmaf_rn`` and XLA's contracted multiply-adds give).
+
+    The float64 product of two float32 values is exact; the float64 sum
+    is rounded to odd (its TwoSum error, where non-zero, moves an even
+    result one ulp towards the exact sum), which makes the final rounding
+    to float32 correct: a plain float64 sum would round twice.
+    """
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    to = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, to),
+                       s).to(torch.float32)
+
+
+def short_row_stages(p: int, k: int) -> tuple:
+    """((lanes, slots), ...) of XLA's CPU loop for ``repro``'s ρ over
+    rows of ``p`` <= 32 slots against ``k`` centroids (see
+    :func:`short_row_sum`)."""
+    if p <= 18 or (k == 1 and p <= 21):
+        return ()
+    if p == 19:
+        return ((8, 16), (2, 2))
+    if p <= 23:
+        return ((4, 16), (4, 4))
+    return ((8, p // 8 * 8),)
+
+
+def short_row_sum(v: torch.Tensor, m: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, P <= 32) -> (B,) Σ_j v_j·m_j in ``repro``'s float32 order.
+
+    XLA's CPU compiler contracts each product into its add, and its loop
+    vectoriser picks the order by P (and K, for 19-21 slots): per stage of
+    :func:`short_row_stages`, ``lanes`` accumulators start at 0 (the
+    running sum in lane 0 after the first stage), slot j goes to lane
+    j mod lanes, and the lanes are folded by halving (lane i += lane
+    i + lanes/2, down to one); the slots after the stages are added one by
+    one.  Every step is a fused multiply-add (:func:`fma_rn`), every fold
+    a float32 add.
+    """
+    n, p = v.shape
+    acc = torch.zeros((n,), dtype=torch.float32, device=v.device)
+    pos = 0
+    for lanes, count in short_row_stages(p, k):
+        lane = [acc] + [torch.zeros_like(acc) for _ in range(lanes - 1)]
+        for j in range(count):
+            lane[j % lanes] = fma_rn(v[:, pos + j], m[:, pos + j],
+                                     lane[j % lanes])
+        while len(lane) > 1:
+            h = len(lane) // 2
+            lane = [lane[i] + lane[i + h] for i in range(h)]
+        acc, pos = lane[0], pos + count
+    for j in range(pos, p):
+        acc = fma_rn(v[:, j], m[:, j], acc)
+    return acc
 
 
 # Width of one window of ``repro``'s CPU reductions (see window_sum).

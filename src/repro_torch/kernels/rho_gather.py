@@ -10,9 +10,11 @@ products are summed in ``repro``'s float32 order, windows of 32 slots
 (half the padding in front), each window in order, then the window
 partials the same way (``kernels/ref.py:window_sum``): the warp stages 8
 windows' products in shared memory, a lane sums each window, and the
-partials are folded in order.  Plain version:
-:func:`repro_torch.kernels.ref.rho_gather`, which repeats that order, so
-the two agree bit for bit, and with ``repro``'s ρ.
+partials are folded in order.  A row of at most 32 slots takes XLA's
+order of fused multiply-adds there instead (``ref.short_row_sum``), with
+``__fmaf_rn``.  Plain version: :func:`repro_torch.kernels.ref.rho_gather`,
+which repeats both orders, so the two agree bit for bit, and with
+``repro``'s ρ.
 
 What bounds it on the card: bytes — the live tuples (8 bytes each, the
 row's first ``nnz`` slots) plus one 4-byte means entry per live tuple and

@@ -11,7 +11,9 @@ the cluster sums, with ``init=`` chunk after chunk over a store,
 document's ρ against the rebuilt means).  ``from_model`` / ``to_model``
 close the train → serve → refit loop on the one FittedModel artifact, and
 ``serve()`` lifts it into the continuous-batching service
-(:mod:`repro_torch.serve.server`).
+(:mod:`repro_torch.serve.server`).  A two-level model classifies through
+its coarse level (:func:`repro_torch.cluster.classify_docs_routed`) and
+has no refit.
 
 A refit rebinds the engine's index to new tensors and never writes the
 old ones, so a server still serving the old model is not disturbed.  At
@@ -25,7 +27,8 @@ import dataclasses
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.cluster.classify import _store_tiles, classify_docs
+from repro_torch.cluster.classify import (_store_tiles, classify_docs,
+                                          classify_docs_routed)
 from repro_torch.core.backends import KernelBackend
 from repro_torch.core.meanindex import build_mean_index, normalized_means
 from repro_torch.sparse.store import ChunkPrefetcher, DocStore
@@ -34,17 +37,15 @@ from repro_torch.sparse.store import ChunkPrefetcher, DocStore
 class ClusterEngine:
     """Classify documents against a frozen MeanIndex (serving mode).
 
-    model:      the :class:`repro_torch.cluster.FittedModel` to serve.
+    model:      the :class:`repro_torch.cluster.FittedModel` to serve; a
+                :class:`TwoLevelFittedModel` classifies through its coarse
+                level (``classify_docs_routed``) and refuses ``refit``.
     device:     ``"cuda"`` (default; raises without a GPU) or ``"cpu"``;
                 the index is moved there.
     batch_size: rows per classify batch.
     """
 
     def __init__(self, model, *, device="cuda", batch_size: int = 4096):
-        if getattr(model, "coarse_index", None) is not None:
-            raise NotImplementedError(
-                "serving a two-level model needs two-level IVF, which the "
-                "port does not have yet")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.device = resolve_device(device)
@@ -88,13 +89,24 @@ class ClusterEngine:
     def classify(self, docs, *, n_probe: int | None = None):
         """docs: SparseDocs | DocStore -> (assign (N,) int32, sims (N,)
         float32) on the engine's device, the same path as
-        ``FittedModel.predict``.  ``n_probe`` belongs to two-level models
-        and must be None."""
+        ``FittedModel.predict``.  A two-level model routes through its
+        coarse level, ``n_probe`` overriding its probe width for this call;
+        a flat model takes no ``n_probe``."""
+        if self._two_level() is not None:
+            return classify_docs_routed(self._two_level(), docs,
+                                        n_probe=n_probe,
+                                        batch_size=self.batch_size,
+                                        device=self.device)
         if n_probe is not None:
             raise ValueError("n_probe only applies to an engine serving a "
                              "two-level model")
         return classify_docs(self.index, docs, batch_size=self.batch_size,
                              device=self.device)
+
+    def _two_level(self):
+        """The served model when it is a two-level one, else None."""
+        return (self._source if getattr(self._source, "coarse_index", None)
+                is not None else None)
 
     def _rebuild(self, lam_t: torch.Tensor) -> None:
         """λ_t (D, K) cluster sums -> a fresh index, in place of λ_t (every
@@ -112,8 +124,15 @@ class ClusterEngine:
         Returns (assign (N,) int32, rho (N,) float32) on the engine's
         device: the membership the last rebuild consumed (classified
         against the pre-rebuild index, the Lloyd convention) and each
-        document's ρ against the rebuilt means.
+        document's ρ against the rebuilt means.  A two-level model
+        refuses: a flat rebuild would move its fine means out from under
+        the frozen coarse level.
         """
+        if self._two_level() is not None:
+            raise NotImplementedError(
+                "refit is not supported on a two-level model: the flat "
+                "update phase cannot maintain the coarse level; run a fresh "
+                "fit with ClusterConfig(coarse_k=...) and hot-swap it")
         if isinstance(docs, DocStore):
             return self._refit_store(docs, n_iter=n_iter)
         if docs.n_docs == 0:

@@ -10,7 +10,9 @@ A servable owns the three stages a request batch moves through —
   * ``device_compute`` — the fused classify of the batch
     (:func:`repro_torch.cluster.classify._classify_fused`, the one behind
     ``classify_docs``, so served results equal the direct path bit for
-    bit).  On the card it copies the batch into the bucket's static input
+    bit; for a two-level model probing fewer than all K_c cells its routed
+    twin ``_routed_fused``, the one behind ``classify_docs_routed``, top-n
+    cell selection and ``routed_scan`` kernel included).  On the card it copies the batch into the bucket's static input
     tensors, replays the bucket's CUDA graph and copies the outputs out to
     pinned host buffers, all on the servable's one stream, records an
     event and returns without a host sync; on the CPU it runs the same
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch.cluster.classify import _classify_fused
+from repro_torch.cluster.classify import _classify_fused, _routed_fused
 
 DEFAULT_BATCH_SIZES = (8, 16, 32, 64, 128, 256)
 
@@ -69,10 +71,10 @@ class PreparedBatch:
 class _BucketGraph:
     """One bucket's captured classify: static inputs, graph, outputs."""
 
-    __slots__ = ("ids", "vals", "graph", "assign", "sims")
+    __slots__ = ("ids", "vals", "nnz", "graph", "assign", "sims")
 
-    def __init__(self, ids, vals, graph, assign, sims):
-        self.ids, self.vals, self.graph = ids, vals, graph
+    def __init__(self, ids, vals, nnz, graph, assign, sims):
+        self.ids, self.vals, self.nnz, self.graph = ids, vals, nnz, graph
         self.assign, self.sims = assign, sims
 
 
@@ -83,6 +85,7 @@ class _Staging:
         pin = lambda shape, dt: torch.empty(shape, dtype=dt, pin_memory=True)
         self.ids = pin((rows, width), torch.int32)
         self.vals = pin((rows, width), torch.float32)
+        self.nnz = pin((rows,), torch.int32)
         self.assign = pin((rows,), torch.int32)
         self.sims = pin((rows,), torch.float32)
         self.event = torch.cuda.Event()
@@ -102,8 +105,10 @@ class ServableClusterModel:
     device:      ``"cuda"`` (default; raises without a GPU) or ``"cpu"``
                  (eager, the plain versions).  The index is moved there.
 
-    The artifact's ``tuned`` field is not read (the port has no autotuner),
-    and a two-level artifact raises (two-level IVF is not ported yet).
+    The artifact's ``tuned`` field is not read (the port has no autotuner).
+    A two-level artifact serves through the routed classify at its
+    ``n_probe`` (``n_probe`` = K_c is the flat classify over its fine
+    means, and serves as one).
     """
 
     def __init__(self, model, *, batch_sizes=DEFAULT_BATCH_SIZES,
@@ -111,13 +116,14 @@ class ServableClusterModel:
         sizes = tuple(sorted({int(b) for b in batch_sizes}))
         if not sizes or sizes[0] < 1:
             raise ValueError(f"batch_sizes must be positive, got {batch_sizes}")
-        if getattr(model, "coarse_index", None) is not None:
-            raise NotImplementedError(
-                "serving a two-level model needs two-level IVF, which the "
-                "port does not have yet")
         self.device = resolve_device(device)
         self.model = model
         self.index = model.index.to(self.device)
+        self.n_probe = int(getattr(model, "n_probe", 0) or 0)
+        self._routed = None
+        if (getattr(model, "coarse_index", None) is not None
+                and self.n_probe < model.coarse_k):
+            self._routed = model._routed_operands(self.device)
         self.sorted_batch_sizes = sizes
         self._pad_width = None if pad_width is None else int(pad_width)
         self.dim = int(self.index.dim)
@@ -135,12 +141,19 @@ class ServableClusterModel:
                 self._capture_all()
 
     # -- CUDA graphs ----------------------------------------------------------
+    def _classify(self, ids, vals, nnz):
+        """(assign, sims) of a padded batch: the flat classify, or the
+        routed one of a two-level model."""
+        if self._routed is None:
+            return _classify_fused(ids, vals, self.index.means_t)
+        return _routed_fused(ids, vals, nnz, *self._routed, self.n_probe)[:2]
+
     def _warm_up(self):
         """One eager classify of a dead row: builds and loads the kernel
-        library before any capture and before any serving thread runs."""
+        libraries before any capture and before any serving thread runs."""
         with torch.cuda.stream(self._stream):
             z = torch.zeros((1, 1), dtype=torch.int32, device=self.device)
-            _classify_fused(z, z.float(), self.index.means_t)
+            self._classify(z, z.float(), z[0])
         self._stream.synchronize()
 
     def _capture_all(self):
@@ -159,13 +172,14 @@ class ServableClusterModel:
                                   device=self.device)
                 vals = torch.zeros((b, p), dtype=torch.float32,
                                    device=self.device)
+                nnz = torch.zeros((b,), dtype=torch.int32, device=self.device)
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    assign, sims = _classify_fused(ids, vals,
-                                                   self.index.means_t)
+                    assign, sims = self._classify(ids, vals, nnz)
                 finally:
                     graph.capture_end()
-            self._graphs[b] = _BucketGraph(ids, vals, graph, assign, sims)
+            self._graphs[b] = _BucketGraph(ids, vals, nnz, graph, assign,
+                                           sims)
             self._captures[b] += 1
             self.capture_s[b] = time.perf_counter() - t0
         self._free.append(_Staging(self.max_batch_size, p))
@@ -258,17 +272,19 @@ class ServableClusterModel:
         an event; returns the batch's staging slot without a host sync.  On
         the CPU: the eager (assign, sims) tensors."""
         if self.device.type == "cpu":
-            return _classify_fused(torch.from_numpy(batch.ids),
-                                   torch.from_numpy(batch.vals),
-                                   self.index.means_t)
+            return self._classify(torch.from_numpy(batch.ids),
+                                  torch.from_numpy(batch.vals),
+                                  torch.from_numpy(batch.nnz))
         b = batch.bucket
         slot = self._take_staging()
         slot.ids[:b].numpy()[...] = batch.ids
         slot.vals[:b].numpy()[...] = batch.vals
+        slot.nnz[:b].numpy()[...] = batch.nnz
         g = self._graphs[b]
         with self._lock, torch.cuda.stream(self._stream):
             g.ids.copy_(slot.ids[:b], non_blocking=True)
             g.vals.copy_(slot.vals[:b], non_blocking=True)
+            g.nnz.copy_(slot.nnz[:b], non_blocking=True)
             g.graph.replay()
             slot.assign[:b].copy_(g.assign, non_blocking=True)
             slot.sims[:b].copy_(g.sims, non_blocking=True)

@@ -13,8 +13,9 @@ wrote opens in the other.
 tf-idf, df-rank remap, L2 normalisation), numpy throughout and written as
 ``repro``'s, so the two builders write the same bytes.
 
-``SubsetStore`` and ``partition_store`` (two-level IVF) are not ported
-here; they come with the IVF slice.
+:class:`SubsetStore` and :func:`partition_store` split a store by cell
+for the two-level fit (:mod:`repro_torch.cluster.two_level`): lazy views
+that read their rows from the parent's chunks.
 """
 from __future__ import annotations
 
@@ -215,6 +216,10 @@ class DocStore:
         return cls(n_docs=n, dim=docs.dim, chunk_size=c, pad_width=p,
                    chunks=chunks, df=df)
 
+    def subset(self, rows, *, chunk_size: int | None = None) -> SubsetStore:
+        """A read-only view of the given rows (:class:`SubsetStore`)."""
+        return SubsetStore(self, rows, chunk_size=chunk_size)
+
     @classmethod
     def open(cls, directory: str) -> DocStore:
         with open(os.path.join(directory, _META)) as f:
@@ -245,6 +250,76 @@ class DocStore:
                        "pad_width": self.pad_width,
                        "n_chunks": self.n_chunks}, f)
         return DocStore.open(directory)
+
+
+class SubsetStore(DocStore):
+    """A lazy row-subset view of a parent :class:`DocStore` (a two-level
+    fit's cell).
+
+    It holds the (n_sub,) parent row indices, in the given order, and
+    gathers each chunk's rows from the parent's chunks when it is read,
+    each parent chunk once per sub-chunk.  Chunks are uniform ``(C, P)``
+    with the parent's ``pad_width`` and a dead-row tail, so every fit and
+    the prefetcher run on a cell as on a store.  ``df`` is not inherited:
+    reading it counts the subset's own document frequencies, and the
+    two-level fit passes the corpus's instead.
+    """
+
+    def __init__(self, parent: DocStore, rows, *,
+                 chunk_size: int | None = None):
+        rows = np.asarray(rows, np.int64).ravel()
+        if rows.size and not ((rows >= 0) & (rows < parent.n_docs)).all():
+            raise IndexError(f"subset rows out of range [0, {parent.n_docs})")
+        if rows.size == 0:
+            raise ValueError("a SubsetStore needs at least one row")
+        self.parent = parent
+        self.rows = rows
+        # An empty chunk list: the base class then reads every chunk
+        # through host_chunk (read_chunk, gather_rows, df, to_docs).
+        super().__init__(n_docs=rows.size, dim=parent.dim,
+                         chunk_size=min(chunk_size or parent.chunk_size,
+                                        rows.size),
+                         pad_width=parent.pad_width, chunks=[])
+
+    def host_chunk(self, ci: int):
+        if not 0 <= ci < self.n_chunks:
+            raise IndexError(f"chunk {ci} out of range [0, {self.n_chunks})")
+        c, p = self.chunk_size, self.pad_width
+        g = self.rows[ci * c:(ci + 1) * c]
+        ids = np.zeros((c, p), np.int32)
+        vals = np.zeros((c, p), np.float32)
+        nnz = np.zeros((c,), np.int32)
+        pc, pr = np.divmod(g, self.parent.chunk_size)
+        for chunk_i in np.unique(pc):
+            at = np.flatnonzero(pc == chunk_i)
+            src = self.parent.host_chunk(int(chunk_i))
+            for dst, a in zip((ids, vals, nnz), src):
+                dst[at] = a[pr[at]]
+        return ids, vals, nnz
+
+    def save(self, directory: str) -> DocStore:
+        raise NotImplementedError(
+            "a SubsetStore is a view for one fit; save the parent store "
+            "instead")
+
+
+def partition_store(store: DocStore, labels, n_cells: int, *,
+                    chunk_size: int | None = None) -> list:
+    """One :class:`SubsetStore` per cell of ``labels`` ((N,) ints), its
+    rows in corpus order, and None for an empty cell."""
+    labels = np.asarray(labels)
+    if labels.shape != (store.n_docs,):
+        raise ValueError(f"labels must be ({store.n_docs},), got "
+                         f"{labels.shape}")
+    order = np.argsort(labels, kind="stable")
+    counts = np.bincount(labels, minlength=n_cells)
+    views, start = [], 0
+    for c in range(n_cells):
+        stop = start + int(counts[c])
+        views.append(None if stop == start else
+                     store.subset(order[start:stop], chunk_size=chunk_size))
+        start = stop
+    return views
 
 
 def as_store(docs, *, chunk_size: int | None = None) -> DocStore:

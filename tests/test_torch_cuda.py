@@ -18,13 +18,19 @@ tile setting of ``scripts/gather_probe.py``, the square variant at t_th 0
 rows, duplicate ids and assignments outside [0, K).  For segment_update K above one
 shared-memory column tile and a term with 12,000 postings, and its
 accumulating (``init``) launch chunk after chunk; for sketch_sim
-tiles whose leading s are all zero.  Kernel and plain version add in the
-same order without fused multiply-adds, so they must agree bit for bit;
+tiles whose leading s are all zero; for rho_gather every row width up to
+32 slots (the fused multiply-add orders); for the routed scan several
+candidate rounds, long rows, ties across cells and dead rows.  Kernel
+and plain version add in the same order, without fused multiply-adds but
+where ``repro`` has them (rho_gather's rows of at most 32 slots), so they
+must agree bit for bit;
 the plain segment_update on the card uses atomics (``index_add_``), so λ is
 compared bitwise against the CPU plain version instead.  Beside the
 kernels: the chunk prefetcher on the card (pinned ring of depth 1 and 3,
 side stream, memory and memmapped stores) and a four-chunk streaming fit
-against the resident fit.  This file imports neither JAX nor ``repro``."""
+against the resident fit, and the two-level fit, routed classify and
+routed serving against the CPU.  This file imports neither JAX nor
+``repro``."""
 import numpy as np
 import pytest
 
@@ -234,6 +240,75 @@ def test_rho_gather_equal_plain(dev, shape):
     assert torch.equal(got.cpu(), ref.rho_gather(assign, ids, vals, means,
                                                  full))
     assert bool((got[::5] == 0).all()) and bool((got[1::7] == 0).all())
+
+
+@pytest.mark.parametrize("k", [1, 7])
+@pytest.mark.parametrize("p", range(1, 33))
+def test_rho_gather_short_rows_equal_plain(dev, p, k):
+    """Rows of at most 32 slots take XLA's order of fused multiply-adds
+    (``ref.short_row_stages``, K = 1 sequential up to 21 slots): the
+    kernel's ``__fmaf_rn`` steps equal the plain version's exact fused
+    multiply-adds bit for bit, on the card and on the CPU."""
+    ids, vals, nnz, means, assign, _ = _rho_case((300, p, 500, k), "drawn",
+                                                 seed=p)
+    g = [x.to(dev) for x in (assign, ids, vals, means, nnz)]
+    got = ops.rho_gather(*g)
+    assert torch.equal(got, ref.rho_gather(*g))
+    assert torch.equal(got.cpu(), ref.rho_gather(assign, ids, vals, means,
+                                                 nnz))
+
+
+def _routed_case(b, p, d, sizes, n_probe, seed):
+    """(ids, vals, nnz, means_t, cells, starts, sizes, cmax): rows with
+    garbage past nnz and a few dead ones, cells drawn without repeats,
+    cell 1 a copy of cell 0's first columns (ties across cells)."""
+    rng = np.random.default_rng(seed)
+    sizes = np.asarray(sizes, np.int32)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    k = int(sizes.sum())
+    means = rng.random((d, k)).astype(np.float32)
+    means[rng.random((d, k)) < 0.5] = 0.0
+    means[:, starts[1]:starts[1] + sizes[1]] = means[:, :sizes[1]]
+    nnz = rng.integers(0, p + 1, b).astype(np.int32)
+    nnz[::17] = 0
+    ids = rng.integers(0, d, (b, p)).astype(np.int32)
+    vals = (rng.random((b, p)) + 0.05).astype(np.float32)
+    vals[rng.random((b, p)) < 0.1] = 0.0
+    cells = np.stack([rng.permutation(len(sizes))[:n_probe]
+                      for _ in range(b)]).astype(np.int32)
+    cells[1::5, :min(n_probe, 2)] = [1, 0][:min(n_probe, 2)]
+    t = torch.from_numpy
+    return (t(ids), t(vals), t(nnz), t(means), t(cells), t(starts),
+            t(sizes), int(sizes.max()))
+
+
+@pytest.mark.parametrize("b,p,d,sizes,n_probe", [
+    (300, 60, 2000, [40, 7, 1, 300, 90], 2),
+    (64, 1300, 5000, [3, 3, 1, 2], 4),
+    (9, 5, 50, [1, 1, 1], 1),
+    (2000, 200, 30000, [120] * 30 + [1, 400], 3)])
+def test_routed_scan_equal_plain(dev, b, p, d, sizes, n_probe):
+    """The routed scan against its plain version bit for bit: several
+    candidate rounds per block (J > 256), document tiles past 512 slots,
+    single-centroid cells, ties across cells (the first candidate wins),
+    dead rows, garbage past nnz; and each winner's similarity is the flat
+    ``sparse_sim``'s for its column."""
+    case = _routed_case(b, p, d, sizes, n_probe, seed=b)
+    g = [x.to(dev) for x in case[:7]]
+    ops.reset_counts()
+    got = ops.routed_scan(*g, case[7])
+    assert ops.LAUNCHES["routed_scan"] == 1 and ops.PLAIN["routed_scan"] == 0
+    want = ref.routed_scan(*g, case[7])
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    cpu = ref.routed_scan(*case)
+    for a, w in zip(got, cpu):
+        assert torch.equal(a.cpu(), w)
+    ids, vals, nnz = case[0], case[1], case[2]
+    live = torch.arange(p)[None, :] < nnz[:, None]
+    flat = ref.sparse_sim(torch.where(live, ids, 0).to(dev),
+                          torch.where(live, vals, 0.0).to(dev), g[3])[0]
+    assert torch.equal(got[1], flat.gather(1, got[0].long()[:, None])[:, 0])
 
 
 def test_cuda_operand_the_kernel_cannot_take_raises(dev):
@@ -753,6 +828,81 @@ def test_server_swap_under_traffic_on_the_card(dev, serve_models):
         assert srv.stats("m")["n_failures"] == 0
     finally:
         srv.close()
+
+
+@pytest.fixture(scope="module")
+def ivf_model(dev, serve_models):
+    """A two-level fit (K 24, K_c 4) of the serving corpus, on the card
+    and on the CPU from the same seed rows."""
+    from repro_torch.cluster import ClusterConfig, fit
+    from repro_torch.core.update import draw_seed_rows
+
+    docs = serve_models[0]
+    cfg = ClusterConfig(k=24, coarse_k=4, n_probe=1, max_iter=6,
+                        batch_size=512, seed=1)
+    rows = lambda n, k, seed: draw_seed_rows(n, k, seed=seed)
+    return (fit(docs, cfg.replace(device="cuda"), seed_rows=rows),
+            fit(docs, cfg.replace(device="cpu"), seed_rows=rows))
+
+
+def test_two_level_fit_and_routed_classify_on_card(dev, serve_models,
+                                                   ivf_model):
+    """The two-level fit on the card equals the CPU fit bit for bit
+    (labels, ρ, coarse and fine means), over a store too, and the routed
+    classify on the card equals the CPU's at n_probe 1, 2 and 4."""
+    from repro_torch.cluster import ClusterConfig, classify_docs_routed, fit
+    from repro_torch.core.update import draw_seed_rows
+    from repro_torch.sparse.store import DocStore
+
+    docs = serve_models[0]
+    gpu, cpu = ivf_model
+    assert torch.equal(gpu.labels.cpu(), cpu.labels)
+    assert torch.equal(gpu.rho_self.cpu(), cpu.rho_self)
+    assert torch.equal(gpu.index.means_t.cpu(), cpu.index.means_t)
+    assert torch.equal(gpu.coarse_index.means_t.cpu(),
+                       cpu.coarse_index.means_t)
+    st = fit(DocStore.from_docs(docs, chunk_size=400),
+             ClusterConfig(k=24, coarse_k=4, max_iter=6, batch_size=512,
+                           seed=1, device="cuda"),
+             seed_rows=lambda n, k, seed: draw_seed_rows(n, k, seed=seed))
+    assert torch.equal(st.labels, gpu.labels)
+    assert torch.equal(st.index.means_t, gpu.index.means_t)
+    for n_probe in (1, 2, 4):
+        ops.reset_counts()
+        got = classify_docs_routed(gpu, docs.to(dev), n_probe=n_probe,
+                                   batch_size=512, with_stats=True)
+        assert ops.LAUNCHES["routed_scan"] == (3 if n_probe < 4 else 0)
+        assert all(v == 0 for v in ops.PLAIN.values()), ops.PLAIN
+        want = classify_docs_routed(cpu, docs, n_probe=n_probe,
+                                    batch_size=512, with_stats=True)
+        for a, w in zip(got, want):
+            assert torch.equal(a.cpu(), w)
+
+
+def test_servable_routed_graph_replay_equals_classify(dev, serve_models,
+                                                      ivf_model):
+    """A two-level model behind the servable: one graph per bucket, the
+    top-n cell selection and the routed kernel captured in it, each
+    replay bit for bit ``classify_docs_routed``."""
+    from repro_torch.cluster import classify_docs_routed
+    from repro_torch.serve import ServableClusterModel
+
+    docs = serve_models[0]
+    model = ivf_model[0]
+    sv = ServableClusterModel(model, pad_width=docs.pad_width, device=dev)
+    assert sv.capture_counts() == dict.fromkeys(sv.sorted_batch_sizes, 1)
+    want_a, want_s = classify_docs_routed(model, docs.to(dev))
+    ops.reset_counts()
+    lo = 0
+    for bucket in sv.sorted_batch_sizes:
+        n = bucket - bucket // 8 if bucket > 8 else bucket
+        batch = sv.pre_process([_host_rows(docs, lo, lo + n)])
+        a, s = sv.post_process(sv.device_compute(batch), n)
+        assert np.array_equal(a, want_a[lo:lo + n].cpu().numpy())
+        assert np.array_equal(s, want_s[lo:lo + n].cpu().numpy())
+        lo += n
+    assert ops.LAUNCHES["routed_scan"] == 0        # replays bypass ops
+    assert sv.replay_counts() == dict.fromkeys(sv.sorted_batch_sizes, 1)
 
 
 def test_refit_on_card_equals_cpu_and_store(dev, serve_models):

@@ -138,10 +138,12 @@ def test_port_saved_model_loads_in_repro(fitted, tmp_path):
 def test_model_load_refuses_other_artifacts(tmp_path):
     from repro_torch.checkpoint.store import save_checkpoint
 
+    from repro_torch.cluster import TwoLevelFittedModel
+
     save_checkpoint(str(tmp_path / "a"), {"x": np.zeros(2)}, step=0,
-                    extra={"format": "repro.cluster/fitted-two-level-v1"})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        load_model(str(tmp_path / "a"), device="cpu")
+                    extra={"format": "repro.cluster/fitted-model-v1"})
+    with pytest.raises(ValueError, match="fitted-two-level-v1"):
+        TwoLevelFittedModel.load(str(tmp_path / "a"), device="cpu")
     save_checkpoint(str(tmp_path / "b"), {"x": np.zeros(2)}, step=0,
                     extra={"format": "other"})
     with pytest.raises(ValueError, match="fitted-model-v1"):
@@ -204,10 +206,11 @@ def test_estimator_surface_and_unported_runtimes(fitted):
     with pytest.raises(AttributeError, match="only available after fit"):
         km.labels_
     for kw, item in ((dict(mesh=object()), "item 7"),
-                     (dict(coarse_k=2), "item 5"),
                      (dict(tune="cached"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             SphericalKMeans(8, device="cpu", **kw).fit(None)
+    with pytest.raises(ValueError, match="coarse_k must be < k"):
+        SphericalKMeans(8, coarse_k=8, device="cpu").fit(None)
     with pytest.raises(ValueError, match="algo_mode"):
         ClusterConfig(k=2, algo_mode="sgd").validate()
     with pytest.raises(ValueError, match="tune"):

@@ -186,19 +186,68 @@ def test_rho_gather_plain_equals_repro_bitwise(p):
     assert (got.numpy()[::6] == 0).all()
 
 
-@pytest.mark.parametrize("p", [7, 32])
+@pytest.mark.parametrize("p", range(1, 33))
 def test_rho_gather_plain_short_rows_near_repro(p):
-    """Rows of at most 32 slots: XLA's CPU emitter fuses each product into
-    its add (a fused multiply-add, sequential up to 18 slots, 8 lanes and
-    a tree at 24-32), which the port's rounded products do not repeat;
-    the sums agree to float32 rounding."""
+    """Rows of at most 32 slots: XLA's CPU emitter fuses each product
+    into its add, sequentially up to 18 slots and in lanes and a halving
+    tree from 19 (``ref.short_row_stages``); the plain ρ repeats that
+    order with exact fused multiply-adds and equals ``repro``'s ρ bit for
+    bit at every width."""
     from repro.kernels import xla_blocked as xb
 
     a, i, v, m, n = _rho_rows(p, seed=p)
     got = ref.rho_gather(_t(a), _t(i), _t(v), _t(m), _t(n))
     want = np.asarray(xb.rho_gather(a, i, v, m))
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got.numpy(), want)
     assert (got.numpy()[::6] == 0).all()
+
+
+@pytest.mark.parametrize("p", [17, 19, 20, 21, 22, 24])
+def test_rho_gather_plain_short_rows_one_centroid(p):
+    """Against one centroid XLA keeps rows of 19-21 slots sequential: the
+    plain ρ follows it there too, bit for bit."""
+    from repro.kernels import xla_blocked as xb
+
+    a, i, v, m, n = _rho_rows(p, seed=100 + p)
+    a, m = np.where(a < 50, 0, 1).astype(np.int32), m[:, :1].copy()
+    got = ref.rho_gather(_t(a), _t(i), _t(v), _t(m), _t(n))
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(xb.rho_gather(a, i, v, m)))
+
+
+def _fma_exact(a: np.float32, b: np.float32, c: np.float32) -> np.float32:
+    """RN(a·b + c) to float32 from the exact rational value."""
+    from fractions import Fraction
+
+    x = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    y = np.float32(float(x))
+    lo, hi = (np.nextafter(y, np.float32(-np.inf)),
+              np.nextafter(y, np.float32(np.inf)))
+    best = min((abs(Fraction(float(t)) - x), int(t.view(np.int32)) & 1, t)
+               for t in (lo, y, hi))
+    return best[2]
+
+
+def test_fma_rn_is_exactly_rounded():
+    """``ref.fma_rn`` is the correctly rounded float32 multiply-add, also
+    where a plain float64 sum rounded to float32 rounds twice."""
+    rng = np.random.default_rng(7)
+    n = 2000
+    a = rng.standard_normal(n).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32)
+    c = rng.standard_normal(n).astype(np.float32)
+    # a·b = half an ulp of c times (1 + 2^-36): the float64 sum lands on
+    # the float32 midpoint, and only the exact sum rounds away from c.
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    c[: n // 2] = (sign * (1 + rng.integers(0, 2 ** 23, n) * 2.0 ** -23))[
+        : n // 2]
+    a[: n // 2] = (sign * (1 + 2.0 ** -12) * 2.0 ** -24)[: n // 2]
+    b[: n // 2] = 1 - 2.0 ** -12 + 2.0 ** -24
+    got = ref.fma_rn(_t(a), _t(b), _t(c)).numpy()
+    naive = (a.astype(np.float64) * b + c).astype(np.float32)
+    assert (got != naive).sum() >= n // 4
+    for j in range(n):
+        assert got[j] == _fma_exact(a[j], b[j], c[j]), j
 
 
 def _dirty(ids, vals, seed):
@@ -513,6 +562,9 @@ def test_ops_dispatch_cpu_to_plain_versions():
     ops.sketch_sim(sk, torch.ones((60, 37)))
     qkv = torch.ones((2, 5, 16))
     ops.flash_attention(qkv, qkv, qkv, window=3)
+    i32 = lambda *x: torch.tensor(x, dtype=torch.int32)
+    ops.routed_scan(ti, tv, _full(ids), tm, ta[:, None] % 2, i32(0, 20),
+                    i32(20, 17), 20)
     assert ops.PLAIN == dict.fromkeys(ops.KERNELS, 1)
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
     ops.reset_counts()
