@@ -88,7 +88,13 @@ each of which fails the run on any error:
              (seconds, recall@1, mean and max ``scored``; every winner's
              sim equal to the flat one, n_probe = K_c equal to the flat
              classify bit for bit); the routed_scan kernel against its
-             plain version on one batch at n_probe 1 and 4, bit for bit;
+             plain version on one batch at n_probe 1 and 4, on that batch
+             sorted by its best cell and at n_probe = K_c, and at n_probe
+             1 on means_t moved off 16-byte alignment (one column a
+             thread, the path of K not a multiple of 4), bit for bit,
+             beside its bound and the sectors of means its blocks ask for
+             (``scripts/routed_scan_probe.py`` times it against another
+             revision's source);
              the model behind a ``ClusterServer`` (one CUDA graph per
              bucket, 8 clients, every answer ``classify_docs_routed``'s
              bit for bit); ``ClusterEngine.refit``'s refusal.
@@ -1381,10 +1387,39 @@ def _log_ivf_fit(torch, res, wall: float, peak: int, base: int,
         f"{(peak - base) / matrix:.3f})")
 
 
+def routed_work(torch, ids, vals, nnz, cells, starts, sizes) -> dict:
+    """The work of one routed_scan call on this batch: a multiply and an
+    add per live tuple and live candidate; the bytes: each distinct
+    (term, probed cell) block of means once, the live tuples, the per-row
+    operands and outputs.  Beside them ``requests``: the 32-byte sectors
+    of means that the kernel's blocks ask of L2 (each (document, probe)
+    pair reads its cell's block of every live term's row; no block shares
+    a read with another)."""
+    b, p = ids.shape
+    k_c, n_probe = sizes.shape[0], cells.shape[1]
+    live = (torch.arange(p, device=ids.device)[None, :] < nnz[:, None]) & \
+        (vals != 0)
+    n_live = live.sum(1)
+    cand = sizes[cells.long()].sum(1)
+    flops = 2 * float((n_live * cand).sum())
+    pairs = torch.unique((ids.long()[:, :, None] * k_c
+                          + cells.long()[:, None, :])[live])
+    blocks = float(sizes[(pairs % k_c)].double().sum()) * 4
+    first = starts[cells.long()] * 4 // 32
+    last = (starts[cells.long()] + sizes[cells.long()] - 1) * 4 // 32
+    sectors = (last - first + 1).sum(1)
+    requests = float((n_live * sectors).double().sum()) * 32
+    n_bytes = (blocks + int(n_live.sum()) * 8 + b * (4 + 4 * n_probe + 12)
+               + k_c * 8)
+    return dict(flops=flops, bytes=n_bytes, blocks=blocks, requests=requests,
+                mean_candidates=float(cand.float().mean()))
+
+
 def ivf_phase(torch, docs, df, ivf_iter: int, seed: int, flat_peak: int):
     """The two-level fit at the NYT widths (k 10,000, K_c 100), the routed
     classify at n_probe 1, 4 and K_c against the flat classify, the
-    routed_scan kernel against its plain version, and the model behind a
+    routed_scan kernel against its plain version (n_probe 1, 4, the batch
+    sorted by cell, n_probe K_c), and the model behind a
     ClusterServer.  Counters are zeroed before the fit and read after the
     classifies.  Returns (launches with the graph replays, the
     routed_scan row, the model)."""
@@ -1463,54 +1498,78 @@ def ivf_phase(torch, docs, df, ivf_iter: int, seed: int, flat_peak: int):
     log("  every winner's sim equals the flat one bit for bit; n_probe = "
         "K_c is the flat classify bit for bit")
 
-    # The routed scan on one batch, n_probe 1 and 4.
+    # The routed scan on one batch, n_probe 1 and 4; then the batch sorted
+    # by its best cell (n_probe 1) and at n_probe = K_c.
     coarse_t, means_t, starts, sizes, cmax = model._routed_operands()
     b_ids = docs.ids[:BATCH].contiguous()
     b_vals = docs.vals[:BATCH].contiguous()
     b_nnz = docs.nnz[:BATCH].contiguous()
     csims = ops.sparse_sim(b_ids, b_vals, coarse_t)[0]
     order = torch.sort(csims, dim=1, descending=True, stable=True).indices
+    by_cell = torch.sort(order[:, 0], stable=True).indices
     row = None
-    for n_probe in (1, 4):
-        cells = order[:, :n_probe].to(torch.int32).contiguous()
-        args = (b_ids, b_vals, b_nnz, means_t, cells, starts, sizes, cmax)
+    for n_probe, sort in ((1, False), (4, False), (1, True),
+                          (IVF_COARSE_K, False)):
+        sel = by_cell if sort else slice(None)
+        cells = order[sel, :n_probe].to(torch.int32).contiguous()
+        args = (b_ids[sel].contiguous(), b_vals[sel].contiguous(),
+                b_nnz[sel].contiguous(), means_t, cells, starts, sizes,
+                cmax)
+        what = f"n_probe {n_probe}" + (", sorted by cell" if sort else "")
         got = ops.routed_scan(*args)
         want = ref.routed_scan(*args)
         for nm, g, w in zip(("assign", "best", "scored"), got, want):
-            check_equal(torch, f"routed_scan.{nm} n_probe {n_probe}", g, w)
-        check_equal(torch, "routed_scan vs classify_docs_routed", got[0],
-                    classify_docs_routed(model, docs.slice_rows(0, BATCH),
-                                         n_probe=n_probe)[0])
-        # The work this batch needs: a multiply-add per live tuple and
-        # live candidate; the bytes: each (term, probed cell) block of
-        # means once, the live tuples, the per-row operands and outputs.
-        live = (torch.arange(docs.pad_width, device=docs.device)[None, :]
-                < b_nnz[:, None]) & (b_vals != 0)
-        n_live = live.sum(1)
-        cand = sizes[cells.long()].sum(1)
-        flops = 2 * float((n_live * cand).sum())
-        pairs = torch.unique((b_ids.long()[:, :, None] * IVF_COARSE_K
-                              + cells.long()[:, None, :])[live])
-        blocks = float(sizes[(pairs % IVF_COARSE_K)].double().sum()) * 4
-        n_bytes = (blocks + int(n_live.sum()) * 8
-                   + BATCH * (4 + 4 * n_probe + 12) + IVF_COARSE_K * 8)
+            check_equal(torch, f"routed_scan.{nm} {what}", g, w)
+        if not sort:
+            check_equal(torch, "routed_scan vs classify_docs_routed", got[0],
+                        classify_docs_routed(model, docs.slice_rows(0, BATCH),
+                                             n_probe=n_probe)[0])
+        work = routed_work(torch, *args[:3], cells, starts, sizes)
         r = dict(max_abs_err=0.0,
                  ms=time_ms(torch, lambda: ops.routed_scan(*args)),
-                 plain_ms=time_ms(torch, lambda: ref.routed_scan(*args),
-                                  reps=3),
-                 library_ms=None, bound=bound_ms(n_bytes, flops),
+                 plain_ms=(time_ms(torch, lambda: ref.routed_scan(*args),
+                                   reps=3) if n_probe < IVF_COARSE_K
+                           else None),
+                 library_ms=None,
+                 bound=bound_ms(work["bytes"], work["flops"]),
                  extra=dict(n_probe=n_probe, cmax=cmax,
-                            mean_candidates=float(cand.float().mean()),
-                            means_block_bytes=blocks))
-        log(f"  routed_scan n_probe {n_probe}: {r['ms']:.4f} ms (plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms by "
-            f"{r['bound'][1]}: {flops:.4g} flops, {n_bytes:.4g} bytes of "
-            f"which {blocks:.4g} means blocks), bitwise equal to plain")
+                            mean_candidates=work["mean_candidates"],
+                            means_block_bytes=work["blocks"],
+                            means_request_bytes=work["requests"]))
+        plain = ("not timed" if r["plain_ms"] is None
+                 else f"{r['plain_ms']:.3f} ms")
+        log(f"  routed_scan {what}: {r['ms']:.4f} ms (plain {plain}, "
+            f"bound {r['bound'][0]:.4f} ms by {r['bound'][1]}: "
+            f"{work['flops']:.4g} flops, "
+            f"{work['bytes']:.4g} bytes of which {work['blocks']:.4g} "
+            f"distinct means blocks; the tiles request "
+            f"{work['requests']:.4g} bytes of means sectors), bitwise "
+            f"equal to plain")
         if row is None:
             row = r
+            # The one-column path (K not a multiple of 4, or means_t not
+            # 16-byte aligned) on the same work: means_t 4 bytes past a
+            # 16-byte boundary.
+            shifted = torch.empty((means_t.numel() + 1,),
+                                  dtype=torch.float32,
+                                  device=means_t.device)[1:]
+            shifted = shifted.view(means_t.shape)
+            shifted.copy_(means_t)
+            one = (*args[:3], shifted, *args[4:])
+            for nm, g, w in zip(("assign", "best", "scored"),
+                                ops.routed_scan(*one), want):
+                check_equal(torch, f"routed_scan.{nm} {what}, one column "
+                            f"a thread", g, w)
+            row["extra"]["ms_one_column"] = time_ms(
+                torch, lambda: ops.routed_scan(*one))
+            log(f"  routed_scan {what}, one column a thread: "
+                f"{row['extra']['ms_one_column']:.4f} ms, bitwise equal to "
+                f"plain")
+            del shifted, one
         else:
-            row["extra"].update(ms_n_probe_4=r["ms"],
-                                bound_ms_n_probe_4=r["bound"][0])
+            tag = "_sorted" if sort else f"_n_probe_{n_probe}"
+            row["extra"].update({f"ms{tag}": r["ms"],
+                                 f"bound_ms{tag}": r["bound"][0]})
     del csims, order
 
     # Routed serving: 8 clients against the two-level model.

@@ -258,8 +258,9 @@ def routed_scan(ids, vals, nnz, means_t, cells, starts, sizes, cmax: int):
 
     ``cells`` (B, n_probe) int32 are each row's probed coarse cells, best
     first; cell c's fine centroids are ``means_t``'s columns
-    [starts[c], starts[c] + sizes[c]) (``starts``/``sizes`` (K_c,) int32,
-    every size in [1, cmax]).  Rows read their slots [0, nnz).  The kernel
+    [starts[c], starts[c] + sizes[c]) (``starts``/``sizes`` (K_c,) int32;
+    slots past cmax are not scored).  Rows read their slots [0, nnz); a
+    row whose probed cells are all empty gets column 0 at -inf.  The kernel
     trusts cells, starts and sizes to lie in range (they come from the
     model and the coarse top-n): checking them would cost a host sync.
     """

@@ -19,8 +19,13 @@ rows, duplicate ids and assignments outside [0, K).  For segment_update K above 
 shared-memory column tile and a term with 12,000 postings, and its
 accumulating (``init``) launch chunk after chunk; for sketch_sim
 tiles whose leading s are all zero; for rho_gather every row width up to
-32 slots (the fused multiply-add orders); for the routed scan several
-candidate rounds, long rows, ties across cells and dead rows.  Kernel
+32 slots (the fused multiply-add orders); for the routed scan (grouped
+by cell on the card) a cell taking every row and cells taking none,
+cells wider than a column strip, B * n_probe not a multiple of the tile,
+ties within a cell and across probe ranks, duplicate ids, rows
+ascending or not, long rows and dead rows, empty cells (rows that probe
+only empty ones) and a cell wider than cmax, both column paths (four
+columns a thread, one), and a graph replay.  Kernel
 and plain version add in the same order, without fused multiply-adds but
 where ``repro`` has them (rho_gather's rows of at most 32 slots), so they
 must agree bit for bit;
@@ -258,46 +263,64 @@ def test_rho_gather_short_rows_equal_plain(dev, p, k):
                                                  nnz))
 
 
-def _routed_case(b, p, d, sizes, n_probe, seed):
+def _routed_case(b, p, d, sizes, n_probe, seed, kind="random"):
     """(ids, vals, nnz, means_t, cells, starts, sizes, cmax): rows with
     garbage past nnz and a few dead ones, cells drawn without repeats,
-    cell 1 a copy of cell 0's first columns (ties across cells)."""
+    cell 1 a copy of cell 0's first columns (ties across cells).
+
+    ``kind``: ``random`` (ids drawn with repeats, in no order);
+    ``one_cell`` (cell 2 first for every row, so the other cells take no
+    row at rank 0); ``ties`` (small integers in means and values: exact
+    sums, equal values within a cell and across probe ranks);
+    ``ascending`` (each row's live ids ascending, with duplicates);
+    ``dead`` (every row nnz 0 or all its values 0); ``empty`` (the odd
+    cells of size 0, every seventh row probing only those, and cmax 3
+    below the largest size, whose slots past cmax are not scored)."""
     rng = np.random.default_rng(seed)
     sizes = np.asarray(sizes, np.int32)
+    if kind == "empty":
+        sizes[1::2] = 0
     starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
     k = int(sizes.sum())
-    means = rng.random((d, k)).astype(np.float32)
+    if kind == "ties":
+        means = rng.integers(0, 3, (d, k)).astype(np.float32)
+    else:
+        means = rng.random((d, k)).astype(np.float32)
     means[rng.random((d, k)) < 0.5] = 0.0
     means[:, starts[1]:starts[1] + sizes[1]] = means[:, :sizes[1]]
     nnz = rng.integers(0, p + 1, b).astype(np.int32)
     nnz[::17] = 0
     ids = rng.integers(0, d, (b, p)).astype(np.int32)
-    vals = (rng.random((b, p)) + 0.05).astype(np.float32)
+    if kind == "ascending":
+        ids = np.sort(rng.integers(0, max(d // 8, 1), (b, p)), axis=1)
+        ids = ids.astype(np.int32)
+    if kind == "ties":
+        vals = rng.integers(1, 3, (b, p)).astype(np.float32)
+    else:
+        vals = (rng.random((b, p)) + 0.05).astype(np.float32)
     vals[rng.random((b, p)) < 0.1] = 0.0
+    if kind == "dead":
+        nnz[::2] = 0
+        vals[1::2] = 0.0
     cells = np.stack([rng.permutation(len(sizes))[:n_probe]
                       for _ in range(b)]).astype(np.int32)
     cells[1::5, :min(n_probe, 2)] = [1, 0][:min(n_probe, 2)]
+    if kind == "one_cell":
+        for row in cells:
+            row[:] = np.concatenate([[2], np.delete(row, row == 2)])[:n_probe]
+    if kind == "empty":
+        cells[::7] = np.arange(1, len(sizes), 2)[:n_probe]
     t = torch.from_numpy
     return (t(ids), t(vals), t(nnz), t(means), t(cells), t(starts),
-            t(sizes), int(sizes.max()))
+            t(sizes), int(sizes.max()) - (3 if kind == "empty" else 0))
 
 
-@pytest.mark.parametrize("b,p,d,sizes,n_probe", [
-    (300, 60, 2000, [40, 7, 1, 300, 90], 2),
-    (64, 1300, 5000, [3, 3, 1, 2], 4),
-    (9, 5, 50, [1, 1, 1], 1),
-    (2000, 200, 30000, [120] * 30 + [1, 400], 3)])
-def test_routed_scan_equal_plain(dev, b, p, d, sizes, n_probe):
-    """The routed scan against its plain version bit for bit: several
-    candidate rounds per block (J > 256), document tiles past 512 slots,
-    single-centroid cells, ties across cells (the first candidate wins),
-    dead rows, garbage past nnz; and each winner's similarity is the flat
-    ``sparse_sim``'s for its column."""
-    case = _routed_case(b, p, d, sizes, n_probe, seed=b)
+def _hold_routed(dev, case, got):
+    """``got`` against the plain version on the card and on the CPU, bit
+    for bit, and each winner's similarity against the flat
+    ``sparse_sim`` for its column (rows without a live candidate, column
+    0 at -inf, aside)."""
     g = [x.to(dev) for x in case[:7]]
-    ops.reset_counts()
-    got = ops.routed_scan(*g, case[7])
-    assert ops.LAUNCHES["routed_scan"] == 1 and ops.PLAIN["routed_scan"] == 0
     want = ref.routed_scan(*g, case[7])
     for a, w in zip(got, want):
         assert torch.equal(a, w)
@@ -305,10 +328,88 @@ def test_routed_scan_equal_plain(dev, b, p, d, sizes, n_probe):
     for a, w in zip(got, cpu):
         assert torch.equal(a.cpu(), w)
     ids, vals, nnz = case[0], case[1], case[2]
-    live = torch.arange(p)[None, :] < nnz[:, None]
+    live = torch.arange(ids.shape[1])[None, :] < nnz[:, None]
     flat = ref.sparse_sim(torch.where(live, ids, 0).to(dev),
                           torch.where(live, vals, 0.0).to(dev), g[3])[0]
-    assert torch.equal(got[1], flat.gather(1, got[0].long()[:, None])[:, 0])
+    won = torch.isfinite(got[1])
+    assert torch.equal(got[1][won],
+                       flat.gather(1, got[0].long()[:, None])[:, 0][won])
+
+
+@pytest.mark.parametrize("b,p,d,sizes,n_probe,kind", [
+    (300, 60, 2000, [40, 7, 1, 300, 90], 2, "random"),
+    (64, 1300, 5000, [3, 3, 1, 2], 4, "random"),
+    (9, 5, 50, [1, 1, 1], 1, "random"),
+    (2000, 200, 30000, [120] * 30 + [1, 400], 3, "random"),
+    (1000, 80, 3000, [33, 17, 64, 5, 9, 70], 1, "one_cell"),
+    (1000, 80, 3000, [33, 17, 64, 5, 9, 70], 3, "one_cell"),
+    (301, 40, 3000, [20, 700, 1, 129, 256, 257], 3, "random"),
+    (301, 50, 400, [32, 32, 31, 96, 8], 3, "ties"),
+    (500, 70, 60, [64, 64, 3, 40], 4, "ties"),
+    (777, 120, 3000, [50, 50, 200, 7], 2, "ascending"),
+    (203, 30, 500, [10, 10, 40, 1], 2, "dead"),
+    (512, 90, 3000, [36, 4, 300, 128, 64, 8], 2, "random"),
+    (301, 50, 400, [32, 32, 28, 96, 8], 3, "ties"),
+    (777, 120, 3000, [52, 48, 200, 8], 2, "ascending"),
+    (400, 60, 2000, [30, 5, 40, 9, 12, 7], 3, "empty"),
+    (400, 60, 2000, [32, 5, 40, 9, 12, 7], 1, "empty"),
+])
+def test_routed_scan_equal_plain(dev, b, p, d, sizes, n_probe, kind):
+    """The routed scan against its plain version bit for bit: cells that
+    take every row or none, cells wider than a block's column strip
+    (the 700-wide one more than twice the widest), B * n_probe not a
+    multiple of the tile, rows past 128 staged slots, single-centroid
+    cells, ties within a cell and across probe ranks (the lower rank,
+    then the lower slot wins), duplicate ids, rows ascending or in no
+    order, dead rows, garbage past nnz, empty cells and rows probing only
+    those (column 0 at -inf), a cell wider than cmax, K a multiple of 4
+    (four columns a thread, 16-byte gathers) or not (one); and each
+    winner's similarity is the flat ``sparse_sim``'s for its column."""
+    case = _routed_case(b, p, d, sizes, n_probe, seed=b,
+                        kind=kind)
+    g = [x.to(dev) for x in case[:7]]
+    ops.reset_counts()
+    got = ops.routed_scan(*g, case[7])
+    assert ops.LAUNCHES["routed_scan"] == 1 and ops.PLAIN["routed_scan"] == 0
+    _hold_routed(dev, case, got)
+    if kind == "dead":
+        assert bool((got[1] == 0).all())
+    if kind == "empty":
+        assert bool((got[1][::7] == -torch.inf).all())
+        assert bool((got[0][::7] == 0).all())
+
+
+@pytest.mark.parametrize("four", [True, False])
+@pytest.mark.parametrize("n_probe,kind", [(1, "one_cell"), (3, "random"),
+                                          (4, "ties")])
+def test_routed_scan_column_paths_equal_plain(dev, four, n_probe, kind):
+    """Both column paths of ``csrc/routed_scan.cu`` on the same work (K
+    540): four columns a thread on ``means_t`` as it comes, one column a
+    thread on a copy 4 bytes past a 16-byte boundary; bit for bit against
+    the plain version, and the same call in a CUDA graph replayed on
+    other rows."""
+    case = _routed_case(203, 90, 3000, [40, 1, 300, 129, 64, 6], n_probe,
+                        seed=n_probe, kind=kind)
+    g = [x.to(dev) for x in case[:7]]
+    if not four:
+        means = g[3]
+        g[3] = torch.empty((means.numel() + 1,), dtype=torch.float32,
+                           device=dev)[1:].view(means.shape)
+        g[3].copy_(means)
+        assert g[3].data_ptr() % 16 == 4
+    ops.reset_counts()
+    _hold_routed(dev, case, ops.routed_scan(*g, case[7]))
+    assert ops.LAUNCHES["routed_scan"] == 1 and ops.PLAIN["routed_scan"] == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.routed_scan(*g, case[7])
+    other = _routed_case(203, 90, 3000, [40, 1, 300, 129, 64, 6], n_probe,
+                         seed=n_probe + 100, kind=kind)
+    for x, y in zip(g, other[:7]):
+        x.copy_(y)
+    graph.replay()
+    torch.cuda.synchronize()
+    _hold_routed(dev, other, out)
 
 
 def test_cuda_operand_the_kernel_cannot_take_raises(dev):

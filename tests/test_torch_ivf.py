@@ -435,9 +435,43 @@ def _naive_routed(ids, vals, nnz, means_t, cells, starts, sizes, cmax):
                             vals[i, q] * means_t[ids[i, q], col]))
                 if top is None or acc > top:
                     top, top_col = acc, col
+        if top is None:                    # no live candidate
+            top, top_col = np.float32(-np.inf), 0
         assign[i], best[i] = top_col, top
         scored[i] = len(starts) + sum(int(sizes[c]) for c in cells[i])
     return assign, best, scored
+
+
+@pytest.mark.parametrize("n_probe", [1, 2])
+def test_routed_scan_plain_empty_cells_and_short_cmax(n_probe):
+    """Cells of size 0 are never scored, a row that probes only empty
+    cells gets column 0 at -inf, and a cell's slots past cmax are not
+    scored (``scored`` still counts the whole cell), as in the naive loop;
+    the CUDA kernel is held to this on the card."""
+    rng = np.random.default_rng(10 + n_probe)
+    b, p, d = 30, 12, 50
+    sizes = np.asarray([4, 0, 9, 0, 2], np.int32)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int32)
+    k = int(sizes.sum())
+    means_t = rng.random((d, k)).astype(np.float32)
+    nnz = rng.integers(1, p + 1, b).astype(np.int32)
+    ids = rng.integers(0, d, (b, p)).astype(np.int32)
+    vals = rng.random((b, p)).astype(np.float32)
+    cells = np.stack([rng.permutation(5)[:n_probe] for _ in range(b)])
+    cells[:4] = [1, 3][:n_probe]
+    cells = cells.astype(np.int32)
+    cmax = 6                                   # cell 2 holds 9
+    want = _naive_routed(ids, vals, nnz, means_t, cells, starts, sizes, cmax)
+    t = torch.from_numpy
+    got = ops.routed_scan(t(ids), t(vals), t(nnz), t(means_t), t(cells),
+                          t(starts), t(sizes), cmax)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert (got[0][:4].numpy() == 0).all()
+    assert (got[1][:4].numpy() == -np.inf).all()
+    in_two = got[0].numpy()[(cells == 2).any(1)]
+    assert not ((in_two >= starts[2] + cmax)
+                & (in_two < starts[2] + sizes[2])).any()
 
 
 @pytest.mark.parametrize("n_probe", [1, 3])
@@ -482,3 +516,43 @@ def test_routed_scan_plain_equals_naive_loop(n_probe):
                             t(cells), t(starts), t(sizes), 5)
     for g, a in zip(got, again):
         assert torch.equal(g, a)
+
+
+# ---------------------------------------------------------------------------
+# Routed assignments at near ties, on a larger corpus.
+# ---------------------------------------------------------------------------
+
+def test_routed_assignments_part_from_repro_only_at_near_ties(tmp_path):
+    """On ``pubmed8m.reduced()``'s corpus (20,000 documents, vocab 8,192,
+    nt_mean 60, 200 topics) and a two-level model of K 200, K_c 14 that
+    the port fits (mivi, 4 iterations, no EstParams) and ``repro`` loads
+    from the port's save: the documents where the port's routed classify
+    parts from ``repro``'s at n_probe 1, 2 and K_c (the flat classify).
+    ``repro``'s scan is FMA-contracted and the port's is not, so a
+    parting is allowed only at a near tie: the two winners' similarities
+    within 1e-5.  None parted when this test was written."""
+    spec = CorpusSpec(n_docs=20_000, vocab=8_192, nt_mean=60.0,
+                      n_topics=200, seed=0)
+    docs, df, _, _ = make_corpus(spec)
+    tdocs = docs_from_numpy(docs.ids, docs.vals, docs.nnz, docs.dim, df,
+                            device="cpu")
+    k_c = 14
+    tm = fit(tdocs, ClusterConfig(k=200, coarse_k=k_c, n_probe=1,
+                                  algo="mivi", params=None, max_iter=4,
+                                  batch_size=4096, seed=0, device="cpu"),
+             df=tdocs.df)
+    tm.save(str(tmp_path / "port"))
+    jm = jcluster.load_model(str(tmp_path / "port"))
+    parted, gap = {}, {}        # by n_probe: documents parted, max |Δsim|
+    for n_probe in (1, 2, k_c):
+        a, s = classify_docs_routed(tm, tdocs, n_probe=n_probe,
+                                    batch_size=4096)
+        ja, js = (np.asarray(x) for x in jcluster.classify_docs_routed(
+            jm, docs, n_probe=n_probe, batch_size=4096))
+        part = a.numpy() != ja
+        parted[n_probe] = int(part.sum())
+        gap[n_probe] = float(np.abs(s.numpy() - js).max())
+        np.testing.assert_allclose(s.numpy(), js, rtol=1e-5, atol=1e-5)
+        assert (np.abs(s.numpy()[part] - js[part]) <= 1e-5).all(), parted
+    print(f"parted assignments by n_probe {parted}; largest sim "
+          f"difference {gap}")
