@@ -136,8 +136,21 @@ Then the out-of-core plane, the resident corpus moved off the card:
              checkpoint resume (identical labels), and a model saved on
              the card and loaded back (identical predictions).  At the NYT
              widths a streaming checkpoint holds λ, the running means and
-             the means (≈ 59 GB) and a model 19.8 GB, so these run here
-             only.
+             the means (≈ 59 GB), so it runs here only;
+11a. tune  — the corpus back on the card: every setting of both gathers a
+             tuned fit can launch (sims with counts and without, esicp
+             with counts; tiles 0-3 in both grid orders) on one batch, bit
+             for bit against the plain version and timed; an ES-ICP fit
+             with ``tune="search"`` from a cold cache (``--mode-iter``
+             iterations): the search's candidates (bound, pruned or
+             timed), winner, seconds and probe memory; the fit's history
+             but elapsed_s and assignments equal to phase 5's first
+             iterations, its ρ_self to the sketch fit's (phase 7, the same
+             iteration), and its tensors' peak above those before it no
+             higher than phase 5's fit's; the model (19.8 GB) saved to a
+             temporary directory, the cache cleared, the model loaded
+             (its winner back in the cache) and a ``tune="cached"`` fit of
+             one iteration that runs no search.
 
 Then, with the clustering phases' memory freed, the LM serving path
 (gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``):
@@ -187,10 +200,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet), used for the bounds.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12
 # TF32 products per fp32 operation in flash_attention (split-TF32:
 # lo·hi + hi·lo + hi·hi).
 TF32_PASSES = 3
@@ -252,6 +261,9 @@ PATH_KERNELS = {
                   "rho_gather", "sparse_sim", "routed_scan"),
     "two_level store": ("esicp_gather", "esicp_filter", "segment_update",
                         "segment_update_init", "rho_gather"),
+    # the esicp fits with tune="search" and, after a load, "cached"
+    "tune": ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
+             "sparse_sim"),
 }
 # The two-level phase: K_c = sqrt(K), the ratio of repro's IVF benchmark
 # (BENCH_ivf.json: K 4096, K_c 64).
@@ -323,10 +335,31 @@ def empty_launch_ms(torch) -> float:
     return graph_ms(torch, lambda: torch.cuda._sleep(0))
 
 
-def bound_ms(n_bytes: float, flops: float, rate: float = FP32_FLOPS):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
+def peaks():
+    """One H100 SXM's data-sheet peaks, the port's one copy of them
+    (``repro_torch.roofline.analysis.HW``)."""
+    from repro_torch.roofline.analysis import HW
+
+    return HW()
+
+
+def bound_ms(n_bytes: float, flops: float, rate: float | None = None):
+    """(ms, "bytes" or "operations"): the larger of the bytes at the
+    memory rate and the operations at ``rate`` (default fp32)."""
+    from repro_torch.roofline.analysis import roofline_terms
+
+    t = roofline_terms({"flops": flops, "bytes accessed": n_bytes}, peaks(),
+                       rate=rate)
+    t_bytes, t_ops = t["t_memory_s"] * 1e3, t["t_compute_s"] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def requested_bytes(torch) -> tuple[int, int]:
+    """(current, peak since the last reset) bytes the live tensors asked
+    the caching allocator for, without its rounding of blocks."""
+    stats = torch.cuda.memory_stats()
+    return (stats["requested_bytes.all.current"],
+            stats["requested_bytes.all.peak"])
 
 
 def max_err(torch, a, b) -> float:
@@ -627,27 +660,20 @@ def fitted_rho(torch, docs, model, row) -> None:
         f"{row['extra']['fitted_ms']:.4f} ms, bitwise equal to plain")
 
 
-def tile_distinct(torch, ids, live, d: int, bt: int) -> int:
-    """Σ over tiles of ``bt`` consecutive rows of the tile's distinct live
-    ids: the row segments a document-tiled gather stages."""
-    tile = torch.arange(ids.shape[0], device=ids.device) // bt
-    keys = (tile[:, None] * d + ids.long())[live]
-    return int(torch.unique(keys).numel())
-
-
 def log_moved_bytes(torch, ids, live, d: int, k: int, rows) -> None:
     """Means-row bytes the gathers move to the SMs on this batch, beside
     their bound: one K-row per live tuple (a walk tuple by tuple), one per
     distinct row of each document tile (the tiled kernel), and one per
     distinct row of the batch (what the bound counts)."""
     from repro_torch.kernels.esicp_gather import ESICP, SIMS, library
+    from repro_torch.tune.cost import tile_distinct
 
     row = k * 4
     walk = int(live.sum()) * row
-    distinct = tile_distinct(torch, ids, live, d, ids.shape[0]) * row
+    distinct = tile_distinct(ids, live, d, ids.shape[0]) * row
     for name, mode in (("sparse_sim", SIMS), ("esicp_gather", ESICP)):
         bt = library().gather_tile_docs(mode, 0)
-        tiled = tile_distinct(torch, ids, live, d, bt) * row
+        tiled = tile_distinct(ids, live, d, bt) * row
         r = rows[name]
         log(f"  {name}: means rows moved to the SMs {tiled / 1e9:.3f} GB "
             f"(tiles of {bt} documents; a tuple-by-tuple walk "
@@ -662,10 +688,11 @@ def log_square_bytes(torch, ids, tail, d: int, k: int, n_tail: int,
     document tiles of their distinct tail rows, against one K-row per tail
     slot (a walk tuple by tuple) and one per distinct tail row."""
     from repro_torch.kernels.esicp_gather import SQUARE, library
+    from repro_torch.tune.cost import tile_distinct
 
     row = k * 4
     bt = library().gather_tile_docs(SQUARE, 0)
-    tiled = tile_distinct(torch, ids, tail, d, bt)
+    tiled = tile_distinct(ids, tail, d, bt)
     log(f"  square variant: {n_tail} tail slots over {tail_rows} distinct "
         f"rows; Σ over tiles of {bt} documents of their distinct tail rows "
         f"{tiled}; means rows moved to the SMs {tiled * row / 1e9:.3f} GB "
@@ -764,10 +791,14 @@ def main_phase(torch, docs, df, max_iter: int):
                f"N={docs.n_docs} D={docs.dim} P={docs.pad_width}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    req_base = requested_bytes(torch)[0]
     ops.reset_counts()
     model = fit(docs, ClusterConfig(k=NYT_K, algo="esicp", max_iter=max_iter,
                                     batch_size=BATCH), df=df,
                 keep_trajectory=True)
+    torch.cuda.synchronize()
+    fit_own = requested_bytes(torch)[1] - req_base
     fit_counts = dict(ops.LAUNCHES)
     t_cls = time.perf_counter()
     labels, sims = classify_docs(model.index, docs, batch_size=BATCH)
@@ -782,8 +813,10 @@ def main_phase(torch, docs, df, max_iter: int):
     log(f"  seconds per iteration: "
         f"{[round(h['elapsed_s'], 3) for h in model.history]}")
     log(f"  classify: {cls_s:.3f} s for {docs.n_docs} docs")
-    log(f"  peak device memory: {peak / 2**30:.2f} GiB "
-        f"(one (D, K) float32 matrix: {docs.dim * NYT_K * 4 / 2**30:.2f} GiB)")
+    log(f"  peak device memory: {peak / 2**30:.2f} GiB, "
+        f"{(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB "
+        f"allocated before the fit (one (D, K) float32 matrix: "
+        f"{docs.dim * NYT_K * 4 / 2**30:.2f} GiB)")
     log(f"  kernel launches: fit {fit_counts}, fit+classify {launches}")
     n_iter = len(model.history)
     log("  launches per iteration of the fit: "
@@ -805,7 +838,7 @@ def main_phase(torch, docs, df, max_iter: int):
     require(bool((sims >= model.rho_self - 1e-5).all()),
             "classify scored a doc below its own-centroid similarity")
     log(f"main path done in {time.perf_counter() - t0:.1f} s")
-    return launches, model, (labels, sims), peak
+    return launches, model, (labels, sims), peak, fit_own
 
 
 def breakdown_phase(torch, docs, df, model, algo: str = "esicp",
@@ -1191,6 +1224,191 @@ def mode_phase(torch, docs, df, algo: str, max_iter: int, esicp_traj):
     return launches, model
 
 
+def _cfg_text(cfg: dict) -> str:
+    from repro_torch.tune.config import TILES
+
+    tile = lambda g: "x".join(map(str, TILES[g][cfg[f"{g}_setting"]]))
+    return (f"sims {cfg['sims_setting']} ({tile('sims')}), esicp "
+            f"{cfg['esicp_setting']} ({tile('esicp')}), "
+            f"{'slabs' if cfg['slab_fastest'] else 'tiles'} fastest")
+
+
+def tune_phase(torch, docs, df, mode_iter: int, esicp_hist, esicp_traj,
+               ref_rho, flat_own: int, seed: int):
+    """The autotuner at the NYT widths.  (1) Every setting a tuned fit can
+    launch (sims with counts and without, esicp with counts; tiles 0-3,
+    each in both grid orders) on one batch, bit for bit against the plain
+    version, and timed.  (2) An esicp fit with tune="search" from a cold
+    cache, cut to ``mode_iter`` iterations: its search (candidates,
+    bounds, timings, winner, seconds, the probe's memory), and the fit
+    equal to the untuned one (history but elapsed_s and assignments
+    against the main fit's first iterations, ρ_self against the untuned
+    sketch fit's at the same iteration, whose assignments equal them),
+    its peak above what was allocated before it no higher than the
+    untuned fit's (``flat_own``: :func:`requested_bytes`, the tensors'
+    own bytes, since the allocator may hand a block up to 1 MiB larger
+    than asked).  (3) The model saved, the
+    cache cleared, the model loaded (its winner back in the cache) and a
+    tune="cached" fit that runs no search.  Returns (launches, per-setting
+    ms)."""
+    from repro_torch.cluster import ClusterConfig, fit, load_model
+    from repro_torch.core.meanindex import normalized_means
+    from repro_torch.kernels import ops, ref
+    from repro_torch.tune import TUNED_CACHE, TunedConfig
+    from repro_torch.tune.config import TILES
+
+    t0 = phase(f"tune: the gathers' settings searched at k={NYT_K}, "
+               f"cached, saved and loaded")
+    dev = docs.device
+    d, k = docs.dim, NYT_K
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    assign = torch.randint(0, k, (docs.n_docs,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    lam = ops.segment_update(assign, docs, k=k)
+    means_t = normalized_means(lam, lam)
+    del assign, lam
+    ids = docs.ids[:BATCH].contiguous()
+    vals = docs.vals[:BATCH].contiguous()
+    t_th, v_th = int(0.8 * d), 0.1
+    want_s = ref.sparse_sim(ids, vals, means_t, with_counts=True)
+    want_e = ref.esicp_gather(ids, vals, means_t, t_th, v_th,
+                              with_counts=True)
+    settings_ms = {"sparse_sim": {}, "esicp_gather": {}}
+    for s in range(8):
+        cfg = TunedConfig(sims_setting=s % 4, esicp_setting=s % 4,
+                          slab_fastest=s >= 4)
+        got = ops.sparse_sim(ids, vals, means_t, with_counts=True,
+                             tuned=cfg)
+        check_equal(torch, f"sparse_sim setting {s} sims", got[0], want_s[0])
+        check_equal(torch, f"sparse_sim setting {s} counts", got[1],
+                    want_s[1])
+        check_equal(torch, f"sparse_sim setting {s} without counts",
+                    ops.sparse_sim(ids, vals, means_t, tuned=cfg)[0],
+                    want_s[0])
+        got = ops.esicp_gather(ids, vals, means_t, t_th, v_th,
+                               with_counts=True, tuned=cfg)
+        for nm, g, w in zip(("rho12", "y", "sims", "counts"), got, want_e):
+            check_equal(torch, f"esicp_gather setting {s} {nm}", g, w)
+        del got
+        ms_s = time_ms(torch, lambda: ops.sparse_sim(
+            ids, vals, means_t, with_counts=True, tuned=cfg))
+        ms_e = time_ms(torch, lambda: ops.esicp_gather(
+            ids, vals, means_t, t_th, v_th, with_counts=True, tuned=cfg))
+        settings_ms["sparse_sim"][s] = ms_s
+        settings_ms["esicp_gather"][s] = ms_e
+        log(f"  setting {s} ({'slabs' if s >= 4 else 'tiles'} fastest): "
+            f"sparse_sim {'x'.join(map(str, TILES['sims'][s % 4]))} "
+            f"{ms_s:.4f} ms, esicp_gather "
+            f"{'x'.join(map(str, TILES['esicp'][s % 4]))} {ms_e:.4f} ms "
+            f"(with counts); bitwise equal to plain")
+    del means_t, want_s, want_e
+    torch.cuda.empty_cache()
+    log(f"  every setting of both gathers bitwise equal to plain on a "
+        f"batch of {BATCH} (t_th {t_th}, v_th {v_th})")
+
+    # The searched fit, from a cold cache.
+    TUNED_CACHE.clear()
+    cfg = ClusterConfig(k=k, algo="esicp", max_iter=mode_iter,
+                        batch_size=BATCH, tune="search")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    req_base = requested_bytes(torch)[0]
+    ops.reset_counts()
+    t = time.perf_counter()
+    model = fit(docs, cfg, df=df, keep_trajectory=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    own = requested_bytes(torch)[1] - req_base
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    stats = TUNED_CACHE.last_search
+    require(TUNED_CACHE.searches == 1 and stats is not None,
+            f"the searched fit ran {TUNED_CACHE.searches} searches")
+    require(model.cuda_tuned is not None, "the searched fit carries no "
+            "winner")
+    winner = TunedConfig.from_dict(model.cuda_tuned)
+    log(f"  search: {stats.n_candidates} candidates, {stats.n_pruned} "
+        f"pruned, {stats.n_timed} timed, in {stats.seconds:.3f} s; probe "
+        f"means {stats.probe_bytes / 2**30:.2f} GiB, device peak at the "
+        f"search's end {stats.peak_bytes / 2**30:.2f} GiB")
+    for c in stats.candidates:
+        timed = ("pruned" if c["pruned"] else
+                 f"timed {c['measured_s'] * 1e3:.4f} ms")
+        log(f"    {_cfg_text(c['config'])}: bound "
+            f"{c['bound_s'] * 1e3:.4f} ms, {timed}")
+    log(f"  winner: {_cfg_text(winner.to_dict())} ({winner.source}), "
+        f"{stats.best_measured_s * 1e3:.4f} ms against the default's "
+        f"{stats.default_measured_s * 1e3:.4f} ms; signature "
+        f"{winner.signature}")
+    require(stats.best_measured_s <= stats.default_measured_s,
+            "the winner is slower than the default")
+    require(all(v == 0 for v in plain.values()),
+            f"a plain version ran in the tuned fit: {plain}")
+    require(all(launches[n] > 0 for n in PATH_KERNELS["tune"]),
+            f"a kernel of the tuned fit never launched: {launches}")
+    require(model.n_iter == min(mode_iter, len(esicp_hist)),
+            f"the tuned fit ran {model.n_iter} iterations")
+    for r, (h, want) in enumerate(zip(model.history, esicp_hist)):
+        same = {f: v for f, v in h.items() if f != "elapsed_s"} == \
+            {f: v for f, v in want.items() if f != "elapsed_s"}
+        require(same, f"tuned fit: history differs at iteration {r + 1}: "
+                f"{h} vs {want}")
+        require(torch.equal(model.trajectory[r], esicp_traj[r]),
+                f"tuned fit: assignments differ at iteration {r + 1}")
+    require(torch.equal(model.rho_self.cpu(), ref_rho),
+            "tuned fit: ρ_self differs from the untuned fit's")
+    require(own <= flat_own, f"tuned fit: tensors of {own} bytes at its "
+            f"peak above those before it, the untuned fit's {flat_own}")
+    log(f"  tuned fit equals the untuned one over {model.n_iter} "
+        f"iterations (history but elapsed_s, assignments, ρ_self); peak "
+        f"{peak / 2**30:.2f} GiB allocated ({base / 2**30:.2f} GiB before "
+        f"it); its tensors' peak above those before it {own} bytes, the "
+        f"untuned fit's {flat_own} ({(own - flat_own) / 2**20:+.3f} MiB); "
+        f"wall {wall:.3f} s")
+    log(f"  s per iteration, tuned: "
+        f"{[round(h['elapsed_s'], 3) for h in model.history]}; untuned: "
+        f"{[round(h['elapsed_s'], 3) for h in esicp_hist[:model.n_iter]]}")
+
+    # Saved, the cache cleared, loaded: the winner comes back with it.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tuned_") as md:
+        t = time.perf_counter()
+        model.save(md)
+        save_s = time.perf_counter() - t
+        del model
+        torch.cuda.empty_cache()
+        TUNED_CACHE.clear()
+        t = time.perf_counter()
+        back = load_model(md, device="cuda")
+        load_s = time.perf_counter() - t
+    require(back.cuda_tuned == winner.to_dict() and TUNED_CACHE.get(
+        winner.signature) == winner, "the loaded model did not bring its "
+        "winner back into the cache")
+    del back
+    torch.cuda.empty_cache()
+    ops.reset_counts()
+    cached = fit(docs, cfg.replace(tune="cached", max_iter=1), df=df,
+                 keep_trajectory=True)
+    torch.cuda.synchronize()
+    for name, n in ops.LAUNCHES.items():
+        launches[name] += n
+    require(TUNED_CACHE.searches == 0, f"the cached fit ran "
+            f"{TUNED_CACHE.searches} searches")
+    require(cached.cuda_tuned == winner.to_dict(), "the cached fit ran "
+            "without the loaded winner")
+    require({f: v for f, v in cached.history[0].items() if f != "elapsed_s"}
+            == {f: v for f, v in esicp_hist[0].items() if f != "elapsed_s"}
+            and torch.equal(cached.trajectory[0], esicp_traj[0]),
+            "the cached fit differs from the untuned fit")
+    log(f"  saved in {save_s:.1f} s, cache cleared, loaded in {load_s:.1f} "
+        f"s; the tune=\"cached\" fit ran 0 searches with the loaded winner,"
+        f" its iteration equal to the untuned fit's")
+    del cached
+    torch.cuda.empty_cache()
+    log(f"tune phase done in {time.perf_counter() - t0:.1f} s")
+    return launches, settings_ms
+
+
 def sketch_kernel_phase(torch, docs, model):
     """The sketch kernels and the two gather variants against their plain
     versions at the main path's shapes, with a fitted model's means,
@@ -1280,7 +1498,7 @@ def sketch_kernel_phase(torch, docs, model):
         bound=bound_ms((BATCH * s_dim + s_dim * k + BATCH * k) * 4, ops_n),
         # Without fused multiply-adds each of the ops_n operations is one
         # FP32 instruction, at half the fused rate.
-        extra=dict(no_fma_floor_ms=ops_n / (FP32_FLOPS / 2) * 1e3,
+        extra=dict(no_fma_floor_ms=ops_n / (peaks().fp32_flops / 2) * 1e3,
                    region3_ms=r3_ms))
     del got, pairs, lib, got_r3, dsk_tail, tail
 
@@ -2056,7 +2274,8 @@ def attention_bound(bh: int, sq: int, hd: int, window: int,
     that many TF32 products per operation on the tensor cores."""
     pairs = sum(min(i + 1, window) if window >= 0 else i + 1
                 for i in range(sq)) * bh
-    rate = FP32_FLOPS if passes == 1 else TF32_FLOPS
+    hw = peaks()
+    rate = hw.fp32_flops if passes == 1 else hw.tf32_flops
     return bound_ms(4 * bh * sq * hd * 4, passes * 4 * hd * pairs,
                     rate), pairs
 
@@ -2430,12 +2649,12 @@ def main() -> int:
 
     rows = kernel_phase(torch, docs, args.seed)
     variant_launches, small = small_phase(torch, args.seed, args.small_iter)
-    launches, model, cls, flat_peak = main_phase(torch, docs, df,
+    launches, model, cls, flat_peak, flat_own = main_phase(torch, docs, df,
                                                  args.max_iter)
     breakdown_phase(torch, docs, df, model)
     serve_launches, refit_rec = serving_phase(torch, docs, model, cls,
                                               args.seed)
-    esicp_traj = model.trajectory
+    esicp_traj, esicp_hist = model.trajectory, model.history
     resident = resident_record(torch, model, cls)
     del model, cls
     torch.cuda.empty_cache()
@@ -2452,6 +2671,8 @@ def main() -> int:
             paths.setdefault(name, []).append(f"{algo} fit")
         breakdown_phase(torch, docs, df, model, algo, est=False)
         if algo == "sketch":
+            # The untuned ρ_self after --mode-iter iterations.
+            mode_rho = model.rho_self.cpu()
             del model
             torch.cuda.empty_cache()
     rows.update(sketch_kernel_phase(torch, docs, model))
@@ -2496,7 +2717,20 @@ def main() -> int:
         minibatch_phase(torch, store, seed_rows)
         del store
     small_store_phase(torch, small)
-    del docs_h, df, small
+    # The tuner last: the corpus back on the card, nothing else there, and
+    # the host copies of the resident and refit models gone before its
+    # artifact (one (D, K) matrix) goes to disk and back.
+    docs = docs_h.to("cuda")
+    del docs_h, small
+    got, settings_ms = tune_phase(torch, docs, df, args.mode_iter,
+                                  esicp_hist, esicp_traj, mode_rho,
+                                  flat_own, args.seed)
+    for name in PATH_KERNELS["tune"]:
+        launches[name] += got[name]
+        paths[name].append("tuned fits (search; cached after a load)")
+    for name, ms in settings_ms.items():
+        rows[name].setdefault("extra", {})["settings_ms"] = ms
+    del docs, df
     torch.cuda.empty_cache()
 
     rows["flash_attention"] = lm_kernel_phase(torch, args.seed)

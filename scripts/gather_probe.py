@@ -49,7 +49,8 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from chip_smoke import (BATCH, NYT_K, NYT_NT_MEAN, NYT_VOCAB,  # noqa: E402
-                        tile_distinct, time_ms)
+                        time_ms)
+from repro_torch.tune.cost import tile_distinct  # noqa: E402
 from scripts.sketch_sim_probe import compile_all, smi  # noqa: E402
 
 HOT_ROWS = 1024
@@ -223,7 +224,7 @@ def main() -> int:
                       for setting in range(4))} - {-1}
     for name, (bi, bv) in batches.items():
         live = bv != 0
-        moved = {bt: tile_distinct(torch, bi, live, d, bt) * row
+        moved = {bt: tile_distinct(bi, live, d, bt) * row
                  for bt in sorted(tiles)}
         result[name] = {"tuples": int(live.sum()),
                         "walk_bytes": int(live.sum()) * row,

@@ -10,8 +10,7 @@ from repro_torch.core.meanindex import StructuralParams
 
 # ROADMAP Queue 1 items of the runtimes the port does not have yet.
 NOT_PORTED = {
-    "mesh": "the mesh runtime (ROADMAP Queue 1 item 7)",
-    "tune": "the autotuner (ROADMAP Queue 1 item 6)",
+    "mesh": "the mesh runtime (ROADMAP Queue 1 item 2)",
 }
 
 
@@ -31,8 +30,13 @@ class ClusterConfig:
     2 <= K_c < k, the two-level IVF fit (K_c coarse cells, then a fine fit
     per cell; the 'two_level' strategy).  n_probe: the cells the routed
     classify scores per document, 1 <= n_probe <= coarse_k (coarse_k
-    probes every cell: the flat classify).  mesh and tune != 'off' name
-    runtimes the port does not have yet: they raise NotImplementedError."""
+    probes every cell: the flat classify).  tune: 'off' (the gathers'
+    default tiles) | 'cached' (a winner found before for this corpus
+    regime, else the defaults) | 'search' (the roofline-pruned autotuner
+    on a miss, its winner cached; repro_torch.tune); a no-op on the CPU.
+    tune_budget: a repro_torch.tune.SearchBudget (or int max timed) for
+    'search'.  mesh names a runtime the port does not have yet: it raises
+    NotImplementedError."""
 
     k: int
     algo: str = "esicp"
@@ -51,6 +55,7 @@ class ClusterConfig:
     coarse_k: int | None = None
     n_probe: int = 1
     tune: str = "off"
+    tune_budget: Any = None
 
     def __post_init__(self):
         object.__setattr__(self, "est_iters", tuple(self.est_iters))
@@ -110,7 +115,4 @@ class ClusterConfig:
             raise ValueError(
                 f"n_probe must be in [1, coarse_k={self.coarse_k}], got "
                 f"{self.n_probe}")
-        if self.tune != "off":
-            raise NotImplementedError(
-                f"tune={self.tune!r} needs {NOT_PORTED['tune']}")
         return self

@@ -26,9 +26,10 @@ class SphericalKMeans:
     """algo: one of the nine modes; params: 'auto', a StructuralParams or
     None; algo_mode: 'full' or 'minibatch'; device: 'cuda' (default) or
     'cpu'; coarse_k / n_probe: the two-level IVF fit, whose ``model_`` is
-    the nested :class:`TwoLevelFittedModel`.  mesh= and tune != 'off'
-    raise NotImplementedError at fit (their runtimes are not ported
-    yet)."""
+    the nested :class:`TwoLevelFittedModel`; tune / tune_budget: the
+    gathers' autotuner (``ClusterConfig``), whose winner ``model_``
+    carries as ``cuda_tuned``.  mesh= raises NotImplementedError at fit
+    (its runtime is not ported yet)."""
 
     def __init__(self, k: int, *, algo: str = "esicp", params="auto",
                  device: str = "cuda", batch_size: int = 4096,
@@ -37,7 +38,8 @@ class SphericalKMeans:
                  chunk_size: int = 1024, algo_mode: str = "full",
                  checkpoint_dir: str | None = None,
                  checkpoint_every: int = 5, tune: str = "off",
-                 coarse_k: int | None = None, n_probe: int = 1):
+                 tune_budget=None, coarse_k: int | None = None,
+                 n_probe: int = 1):
         self.k = k
         self.algo = algo
         self.params = params
@@ -53,6 +55,7 @@ class SphericalKMeans:
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.tune = tune
+        self.tune_budget = tune_budget
         self.coarse_k = coarse_k
         self.n_probe = n_probe
 
@@ -67,7 +70,7 @@ class SphericalKMeans:
             algo_mode=self.algo_mode, checkpoint_dir=self.checkpoint_dir,
             checkpoint_every=self.checkpoint_every, device=self.device,
             mesh=self.mesh, coarse_k=self.coarse_k, n_probe=self.n_probe,
-            tune=self.tune)
+            tune=self.tune, tune_budget=self.tune_budget)
 
     @classmethod
     def from_config(cls, config: ClusterConfig) -> SphericalKMeans:
@@ -79,8 +82,8 @@ class SphericalKMeans:
                    algo_mode=config.algo_mode,
                    checkpoint_dir=config.checkpoint_dir,
                    checkpoint_every=config.checkpoint_every,
-                   tune=config.tune, coarse_k=config.coarse_k,
-                   n_probe=config.n_probe)
+                   tune=config.tune, tune_budget=config.tune_budget,
+                   coarse_k=config.coarse_k, n_probe=config.n_probe)
 
     def fit(self, docs, df=None, seed_rows=None, *,
             keep_trajectory: bool = False) -> SphericalKMeans:
@@ -98,7 +101,8 @@ class SphericalKMeans:
             rho_self=res.state.rho_self, history=list(res.history),
             converged=res.converged, n_iter=res.n_iter, algo=cfg.algo,
             strategy=strategy.name, cursor=res.cursor,
-            trajectory=res.trajectory)
+            trajectory=res.trajectory,
+            cuda_tuned=None if res.tuned is None else res.tuned.to_dict())
         self.labels_ = self.model_.labels
         self.history_ = self.model_.history
         self.state_ = res.state

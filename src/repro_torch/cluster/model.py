@@ -5,8 +5,14 @@ mean index, the training labels and ρ_self, the history, and provenance.
 (``repro.cluster/fitted-model-v1``), so a model either package saved loads
 in the other.  ``repro`` resolves the saved ``backend`` name when it loads
 a model, so the port writes ``"auto"`` there and its own provenance under
-keys ``repro`` ignores (``runtime``, ``device``).  ``tuned`` is carried as
-an opaque dict (the port has no autotuner yet).  The nested two-level
+keys ``repro`` ignores (``runtime``, ``device``).  The same holds for the
+autotuner's winner: ``repro``'s loader puts a ``tuned`` dict into its own
+cache, and its ``TunedConfig`` refuses any engine but its two, so the
+port writes its winner under ``cuda_tuned`` and carries ``tuned`` (a
+``repro`` artifact's Pallas or XLA config, or None) as an opaque dict
+that never reaches the port's cache.  ``load`` puts ``cuda_tuned`` into
+:data:`repro_torch.tune.TUNED_CACHE`, so a later fit of that corpus
+regime with ``tune="cached"`` reuses it.  The nested two-level
 artifact (:class:`TwoLevelFittedModel`, ``repro.cluster/fitted-two-level-
 v1``) loads and saves the same way, and :meth:`FittedModel.load` hands it
 back for either format.
@@ -31,13 +37,26 @@ MODEL_FORMAT = "repro.cluster/fitted-model-v1"
 TWO_LEVEL_FORMAT = "repro.cluster/fitted-two-level-v1"
 
 
+def seed_tuned_cache(cuda_tuned: dict | None) -> None:
+    """Put an artifact's ``cuda_tuned`` winner into the port's autotuner
+    cache under its signature (nothing for None or an unsigned config)."""
+    if cuda_tuned and cuda_tuned.get("signature"):
+        from repro_torch.tune import TUNED_CACHE, TunedConfig
+
+        TUNED_CACHE.put(cuda_tuned["signature"],
+                        TunedConfig.from_dict(cuda_tuned))
+
+
 @dataclasses.dataclass
 class FittedModel:
     """index: MeanIndex.  labels / rho_self: (N,) int32 / float32 of the
     training corpus.  history: per-iteration diagnostics.  algo, backend,
     strategy: provenance.  cursor: streaming fits only, (next_epoch,
     next_chunk) of an unconverged fit, else None.  trajectory: (N,) int32
-    host assignments after each iteration, when the fit kept them."""
+    host assignments after each iteration, when the fit kept them.
+    tuned: ``repro``'s autotuner winner, carried as it was loaded.
+    cuda_tuned: the port's winner (``repro_torch.tune.TunedConfig``'s
+    dict) the fit ran with, else None."""
 
     index: MeanIndex
     labels: torch.Tensor | None = None
@@ -51,6 +70,7 @@ class FittedModel:
     cursor: tuple | None = None
     tuned: dict | None = None
     trajectory: list | None = None
+    cuda_tuned: dict | None = None
 
     FORMAT = MODEL_FORMAT
 
@@ -120,6 +140,7 @@ class FittedModel:
             "history": self.history,
             "cursor": None if self.cursor is None else list(self.cursor),
             "tuned": self.tuned,
+            "cuda_tuned": self.cuda_tuned,
             "runtime": "repro_torch",
             "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                        else "cpu"),
@@ -140,7 +161,9 @@ class FittedModel:
             name: np.broadcast_to(np.int8(0), s)
             for name, s in cls._shapes(extra).items()}, step=step)
         t = lambda a, dt: torch.from_numpy(np.array(a, dt)).to(dev)
-        return cls(**cls._fields(tree, extra, t))
+        model = cls(**cls._fields(tree, extra, t))
+        seed_tuned_cache(model.cuda_tuned)
+        return model
 
     def _tree(self) -> dict:
         labels = (torch.zeros((0,), dtype=torch.int32) if self.labels is None
@@ -177,7 +200,8 @@ class FittedModel:
                     strategy=extra["strategy"],
                     cursor=(None if extra.get("cursor") is None
                             else tuple(extra["cursor"])),
-                    tuned=extra.get("tuned"))
+                    tuned=extra.get("tuned"),
+                    cuda_tuned=extra.get("cuda_tuned"))
 
 
 @dataclasses.dataclass

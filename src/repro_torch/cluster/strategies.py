@@ -5,7 +5,8 @@
 (core/lloyd.py:streaming_fit), selected by a DocStore input or by
 ``algo_mode='minibatch'``; ``two_level`` the nested IVF fit
 (cluster/two_level.py), selected by ``coarse_k``, whose coarse and cell
-fits run through the other two.  ``mesh`` is not ported yet.
+fits run through the other two (and share the autotuner's cache).
+``mesh`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ class SingleHostStrategy:
             batch_size=config.batch_size, max_iter=config.max_iter,
             est_grid=config.est_grid, est_iters=config.est_iters,
             seed=config.seed, seed_rows=seed_rows, df=df,
-            device=config.device, keep_trajectory=keep_trajectory)
+            device=config.device, keep_trajectory=keep_trajectory,
+            tune=config.tune, tune_budget=config.tune_budget)
 
 
 class StreamingStrategy:
@@ -46,7 +48,8 @@ class StreamingStrategy:
             seed_rows=seed_rows, df=df,
             checkpoint_dir=config.checkpoint_dir,
             checkpoint_every=config.checkpoint_every, device=config.device,
-            keep_trajectory=keep_trajectory)
+            keep_trajectory=keep_trajectory, tune=config.tune,
+            tune_budget=config.tune_budget)
 
 
 class TwoLevelStrategy:

@@ -88,6 +88,9 @@ class TwoLevelResult:
     cell_histories: list = dataclasses.field(default_factory=list)
     cursor: tuple | None = None
     trajectory: list | None = None
+    # The cells share the autotuner's cache; the nested result carries no
+    # one config (repro's two_level_fit leaves it None too).
+    tuned: object = None
 
     @property
     def objective(self) -> float:

@@ -2,7 +2,7 @@
 
 ``repro.configs.registry.ARCHS`` lists ten; the port runs the
 dense-attention serving path, so far for gemma3-1b only.  Asking for one
-of the others raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 16
+of the others raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 3
 lists what is left to port).
 """
 from __future__ import annotations
@@ -30,7 +30,7 @@ def _module(name: str):
         raise KeyError(f"unknown arch {name!r}; one of {REPRO_ARCHS}")
     if name not in ARCHS:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1 item 16); "
+            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1 item 3); "
             f"the port runs {ARCHS}")
     mod = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")

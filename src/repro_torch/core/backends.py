@@ -7,8 +7,11 @@ accumulators; :class:`KernelBackend` produces them through
 kernels and CPU tensors to their plain versions.  So one backend serves the
 card and the CPU tests, and which path ran is visible in the ops counters.
 
-The port's kernels need no epoch-invariant plan, so ``prepare`` returns
-None.  ``repro``'s TAAT ``reference_scan`` is not ported yet.
+The port's kernels need no epoch-invariant plan: they plan per launch.
+What ``prepare`` carries over a fit is the autotuner's winner
+(:mod:`repro_torch.tune`): it returns the backend the fit runs, holding
+the tuned config that ``accumulate`` passes to the two gathers.
+``repro``'s TAAT ``reference_scan`` is not ported yet.
 
 Mult is counted exactly, in int64: ``counts`` are int32 per (object,
 centroid) and ``mult`` is their int64 sum over the ICP-allowed columns
@@ -47,8 +50,25 @@ class KernelBackend:
 
     name = "kernel"
 
-    def prepare(self, docs: SparseDocs, **_):
-        return None
+    def __init__(self, tuned=None):
+        # The gathers' tile settings (repro_torch.tune.TunedConfig), or
+        # None for the defaults.
+        self.tuned = tuned
+
+    def prepare(self, docs: SparseDocs, *, k: int | None = None,
+                tune: str = "off", tune_budget=None) -> KernelBackend:
+        """The backend a fit over ``docs`` runs.  ``tune`` 'off': this one.
+        'cached' / 'search': one carrying
+        :func:`repro_torch.tune.ensure_tuned`'s config for the corpus (the
+        cached winner; 'search' runs the pruned search on a miss under
+        ``tune_budget``), or None where there is none, always on the CPU
+        (the plain versions have no tiles)."""
+        if tune == "off":
+            return self
+        from repro_torch.tune.search import ensure_tuned
+
+        return KernelBackend(ensure_tuned(docs, k=k, mode=tune,
+                                          budget=tune_budget))
 
     def accumulate(self, docs: SparseDocs, index: MeanIndex,
                    xstate: torch.Tensor, *, mode: str, v_ta=None,
@@ -59,15 +79,17 @@ class KernelBackend:
             raise ValueError("mode 'ta' and only it takes v_ta")
         means_t = index.means_t
         t_th = index.params.t_th
+        tuned = self.tuned
         if mode in ("exact", "cs"):
             sims, counts = ops.sparse_sim(docs.ids, docs.vals, means_t,
-                                          with_counts=diag)
+                                          with_counts=diag, tuned=tuned)
             out = {"sims": sims}
             if mode == "cs":
                 # Head-only partial: masking the object side (ids < t_th)
                 # gives the sums of masking the mean rows.
                 head = torch.where(docs.ids < t_th, docs.vals, 0.0)
-                out["rho1"], _ = ops.sparse_sim(docs.ids, head, means_t)
+                out["rho1"], _ = ops.sparse_sim(docs.ids, head, means_t,
+                                                tuned=tuned)
                 # Σ over slots of m², with repro's dead-slot quirk: the
                 # substituted values make a dead slot (id 0) live iff
                 # t_th == 0, as its reference scan counts it.
@@ -77,7 +99,7 @@ class KernelBackend:
         elif mode in ("esicp", "ta"):
             rho12, y, sims, counts = ops.esicp_gather(
                 docs.ids, docs.vals, means_t, t_th, index.params.v_th,
-                with_counts=diag, v_ta=v_ta)
+                with_counts=diag, v_ta=v_ta, tuned=tuned)
             out = {"sims": sims, "rho12": rho12, "y": y}
         else:
             raise ValueError(f"unknown mode {mode!r}; 'exact', 'esicp', "

@@ -59,6 +59,10 @@ class LloydResult:
     # Streaming fits only: per iteration, {pass: seconds} between the
     # fit's marks (:class:`_PassClock`).
     passes: list | None = None
+    # The gathers' tuned config the fit ran with (repro_torch.tune.
+    # TunedConfig), or None when tuning was off, missed or on the CPU; a
+    # streaming fit's is its first chunk's.
+    tuned: object | None = None
 
     @property
     def objective(self) -> float:
@@ -144,7 +148,8 @@ def lloyd_fit(docs: SparseDocs, *, k: int, algo: str = "esicp",
               params="auto", batch_size: int = 4096, max_iter: int = 60,
               est_grid: EstGrid | None = None, est_iters=(1, 2),
               seed: int = 0, seed_rows=None, df: torch.Tensor | None = None,
-              device="cuda", keep_trajectory: bool = False) -> LloydResult:
+              device="cuda", keep_trajectory: bool = False,
+              tune: str = "off", tune_budget=None) -> LloydResult:
     """Single-host Lloyd fit on ``device`` (docs are moved there).
 
     algo:      one of ``repro_torch.core.assignment.ALGORITHMS``: 'mivi',
@@ -155,6 +160,12 @@ def lloyd_fit(docs: SparseDocs, *, k: int, algo: str = "esicp",
                fixed thresholds, or None (trivial).
     seed_rows: optional (K,) document indices for the initial centroids
                (else drawn from ``seed`` with a torch.Generator).
+    tune:      'off' | 'cached' | 'search': the gathers' tile settings
+               from the autotuner (``KernelBackend.prepare``, before the
+               fit allocates its means); ``tune_budget`` a
+               :class:`repro_torch.tune.SearchBudget` (or int max timed)
+               for 'search'.  The settings change the launches, never the
+               sums: the fit is the untuned one bit for bit.
     """
     dev = resolve_device(device)
     docs = docs.to(dev).validate()
@@ -163,7 +174,8 @@ def lloyd_fit(docs: SparseDocs, *, k: int, algo: str = "esicp",
     n = docs.n_docs
     if df is None:
         df = docs.df
-    bk = KernelBackend()
+    bk = KernelBackend().prepare(docs, k=k, tune=tune,
+                                 tune_budget=tune_budget)
     state = init_state(docs, k, initial_params(params, docs.dim), seed=seed,
                        seed_rows=seed_rows)
     bs = max(1, min(batch_size, n))
@@ -192,7 +204,8 @@ def lloyd_fit(docs: SparseDocs, *, k: int, algo: str = "esicp",
 
     return LloydResult(state=state, assign=state.assign, history=history,
                        params=state.index.params, converged=converged,
-                       n_iter=len(history), trajectory=trajectory)
+                       n_iter=len(history), trajectory=trajectory,
+                       tuned=bk.tuned)
 
 
 # ---------------------------------------------------------------------------
@@ -364,8 +377,8 @@ def streaming_fit(store, *, k: int, algo: str = "esicp", params="auto",
                   est_iters=(1, 2), seed: int = 0, seed_rows=None, df=None,
                   prefetch_depth: int = 2, checkpoint_dir: str | None = None,
                   checkpoint_every: int = 0, resume: bool = False,
-                  device="cuda", keep_trajectory: bool = False
-                  ) -> LloydResult:
+                  device="cuda", keep_trajectory: bool = False,
+                  tune: str = "off", tune_budget=None) -> LloydResult:
     """Lloyd over a :class:`repro_torch.sparse.store.DocStore` on
     ``device``, the chunks streamed through the prefetcher.
 
@@ -393,6 +406,11 @@ def streaming_fit(store, *, k: int, algo: str = "esicp", params="auto",
     format commits every ``checkpoint_every`` chunks inside the epoch (0:
     none) and at every epoch boundary; ``resume=True`` continues from the
     latest one (the port's or ``repro``'s), mid-epoch ones included.
+
+    ``tune`` / ``tune_budget`` as in :func:`lloyd_fit`, per chunk: the
+    first pass over a chunk resolves its tuned config and later epochs
+    reuse it; chunks of one store share a corpus signature, so the first
+    chunk's search is every later chunk's cache hit.
     """
     from repro_torch.sparse.store import ChunkPrefetcher
 
@@ -416,6 +434,14 @@ def streaming_fit(store, *, k: int, algo: str = "esicp", params="auto",
         df = torch.as_tensor(np.asarray(df.cpu() if torch.is_tensor(df)
                                         else df)).to(dev, torch.int32)
     bk = KernelBackend()
+    chunk_bks = {}
+
+    def chunk_bk(ci: int, cdocs: SparseDocs) -> KernelBackend:
+        """The backend of chunk ``ci``: tuned at its first pass."""
+        if ci not in chunk_bks:
+            chunk_bks[ci] = bk.prepare(cdocs, k=k, tune=tune,
+                                       tune_budget=tune_budget)
+        return chunk_bks[ci]
 
     if resume:
         if not checkpoint_dir:
@@ -483,9 +509,10 @@ def streaming_fit(store, *, k: int, algo: str = "esicp", params="auto",
             s0, m = ci * c, store.n_valid(ci)
             cdocs = cdocs.slice_rows(0, m)
             sl = slice(s0, s0 + m)
+            cbk = chunk_bk(ci, cdocs)
             if minibatch:
                 a_new, ch, index = _minibatch_chunk(
-                    bk, cdocs, state.index, state.assign[sl], m_mean, counts,
+                    cbk, cdocs, state.index, state.assign[sl], m_mean, counts,
                     k=k, bs=bs)
                 work.assign[sl] = a_new
                 work.acc[1] += m * k
@@ -493,7 +520,7 @@ def streaming_fit(store, *, k: int, algo: str = "esicp", params="auto",
                 # the evolving centres are the state a checkpoint saves
                 state = dataclasses.replace(state, index=index)
             else:
-                _assign_rows(algo, bk, cdocs, state.index, state.assign[sl],
+                _assign_rows(algo, cbk, cdocs, state.index, state.assign[sl],
                              state.rho_self[sl], xstate[sl], state.ub[sl],
                              bs, extra, work.assign[sl], work.ub[sl],
                              work.acc)
@@ -561,4 +588,6 @@ def streaming_fit(store, *, k: int, algo: str = "esicp", params="auto",
                        params=state.index.params, converged=converged,
                        n_iter=len(history), trajectory=trajectory,
                        cursor=None if converged else (r + 1, 0),
-                       prefetch=prefetch, passes=passes)
+                       prefetch=prefetch, passes=passes,
+                       tuned=next((b.tuned for b in chunk_bks.values()
+                                   if b.tuned is not None), None))

@@ -700,8 +700,10 @@ int launch_tiled(const Args& a) {
 // Kt = 32·kCpl), consumer warps.  Seven consumer warps and the producer
 // make 8 warps a block, two blocks an SM, and leave ptxas 128 registers a
 // thread (nine warps would leave 96, and the ES modes spill).  Setting 0 is
-// what the entry points use; the others are for scripts/gather_probe.py
-// (sims without counts, esicp with counts).  kSquare keeps no counts or
+// what the entry points launch untuned; the autotuner (repro_torch/tune)
+// and scripts/gather_probe.py reach the others for sims, with counts (as
+// the fits launch it) and without (as classify does), and for esicp with
+// counts, the only way the fits launch it.  kSquare keeps no counts or
 // regions, so its warps have registers for more documents: six a warp (42
 // a tile) measured fastest against 28 × 256, 56 × 128 and 64 with 16
 // warps (scripts/gather_probe.py), so it has setting 0 only.
@@ -716,7 +718,7 @@ int launch_setting(int setting, const Args& a) {
       if constexpr (kRegions) return launch_tiled<kMode, kCounts, 14, 8, 7>(a);
       else return launch_tiled<kMode, kCounts, 28, 8, 7>(a);
     }
-    if constexpr (kMode == kSims && !kCounts) {
+    if constexpr (kMode == kSims) {
       if (setting == 1) return launch_tiled<kMode, kCounts, 32, 8, 8>(a);
       if (setting == 2) return launch_tiled<kMode, kCounts, 64, 8, 16>(a);
       if (setting == 3) return launch_tiled<kMode, kCounts, 28, 4, 7>(a);
@@ -767,14 +769,12 @@ int dispatch(int mode, int setting, Args a) {
 
 }  // namespace
 
-// Rows one launch takes at tile setting 0 in either grid order: with the
-// slabs fastest the tiles lie on gridDim.y, at most 65,535 of them, and the
-// smallest setting-0 tile holds 14 documents.
-extern "C" int gather_max_rows() {
-  int bt = INT_MAX;
-  for (int mode = kSims; mode <= kTa; ++mode)
-    if (tile_docs(mode, 0) < bt) bt = tile_docs(mode, 0);
-  return 65535 * bt;
+// Rows one launch of `mode` takes at tile setting `setting` in either grid
+// order: with the slabs fastest the tiles lie on gridDim.y, at most 65,535
+// of them.  -1 for an unknown setting.
+extern "C" int gather_max_rows(int mode, int setting) {
+  const int bt = tile_docs(mode, setting);
+  return bt < 0 ? -1 : 65535 * bt;
 }
 
 // Documents per tile of `mode` (0 sims, 1 square, 2 esicp, 3 ta) at tile
@@ -794,7 +794,7 @@ extern "C" long long gather_scratch_bytes(int B, int P, int D, int mode,
 
 // One launch of `mode` at tile setting `setting` (0 to 3, as above; 4 to 7:
 // the same with the slabs fastest in the grid).  The entry points below
-// launch setting 0.
+// launch setting 0; kernels/ops.py launches this one.
 extern "C" int gather_setting_launch(int mode, int setting, const void* ids,
                                      const void* vals, const void* means_t,
                                      int B, int P, int D, int K, float t_th,

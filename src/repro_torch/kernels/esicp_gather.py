@@ -69,7 +69,7 @@ _SIG = {
     "gather_tile_docs": (_build.c_int, [_build.c_int, _build.c_int]),
     "gather_blocks_per_sm": (_build.c_int, [_build.c_int, _build.c_int,
                                             _build.c_int]),
-    "gather_max_rows": (_build.c_int, []),
+    "gather_max_rows": (_build.c_int, [_build.c_int, _build.c_int]),
 }
 # The modes' numbers in gather.cu.
 SIMS, SQUARE, ESICP, TA = 0, 1, 2, 3
@@ -80,9 +80,10 @@ def library():
 
 
 def scratch(lib, ids, dim: int, mode: int, setting: int = 0):
-    """The plan's scratch for one launch (bytes from the library): per
-    tile of documents a bitmap of its ids, their ranks and list, and every
-    live slot's index into that list."""
+    """The plan's scratch for one launch at tile ``setting`` (bytes from
+    the library; a smaller tile has more tiles, so more scratch): per tile
+    of documents a bitmap of its ids, their ranks and list, and every live
+    slot's index into that list."""
     import torch
 
     b, p = ids.shape
@@ -93,16 +94,19 @@ def scratch(lib, ids, dim: int, mode: int, setting: int = 0):
 
 
 def launch(ids, vals, means_t, dim: int, t_th: float, v_th: float, rho12, y,
-           sims, counts) -> None:
-    """Launch on the current stream; operands are checked by kernels/ops."""
+           sims, counts, *, setting: int = 0) -> None:
+    """Launch on the current stream at tile ``setting`` (0-7,
+    ``gather_setting_launch``; the autotuner picks it); operands are
+    checked by kernels/ops."""
     lib = library()
     b, p = ids.shape
     k = means_t.shape[1]
-    rc = lib.esicp_gather_launch(
-        ids.data_ptr(), vals.data_ptr(), means_t.data_ptr(), b, p, dim, k,
-        float(t_th), float(v_th), rho12.data_ptr(), y.data_ptr(),
-        sims.data_ptr(), None if counts is None else counts.data_ptr(),
-        scratch(lib, ids, dim, ESICP).data_ptr(),
+    rc = lib.gather_setting_launch(
+        ESICP, setting, ids.data_ptr(), vals.data_ptr(), means_t.data_ptr(),
+        b, p, dim, k, float(t_th), float(v_th), None, rho12.data_ptr(),
+        y.data_ptr(), sims.data_ptr(),
+        None if counts is None else counts.data_ptr(),
+        scratch(lib, ids, dim, ESICP, setting).data_ptr(),
         _build.stream_ptr(ids.device))
     _build.check(lib, "gather", rc)
 

@@ -12,6 +12,11 @@ squared-rows variants and ``segment_update``'s accumulating one count
 under their own names (``esicp_gather_ta``, ``sparse_sim_square``,
 ``segment_update_init``).  A run resets them with :func:`reset_counts`
 and reads them after, to show which path it took.
+
+The two gathers take ``tuned=`` (a :class:`repro_torch.tune.TunedConfig`)
+and launch at its tile setting; the square and per-row-threshold variants
+have setting 0 only.  On CPU tensors the config is checked and ignored:
+the plain versions have no tiles.
 """
 from __future__ import annotations
 
@@ -64,7 +69,26 @@ def _check_tuples(ids, vals):
                          f"{tuple(vals.shape)} differ")
 
 
-def _check_gather(ids, vals, means_t):
+def _setting(tuned, gather: str, counts: bool) -> int:
+    """The tile setting (0-7) ``tuned`` gives ``gather`` ('sims' or
+    'esicp'; None: the square and ta variants, setting 0)."""
+    if tuned is None:
+        return 0
+    from repro_torch.tune.config import TunedConfig, instantiated
+
+    if not isinstance(tuned, TunedConfig):
+        raise TypeError(f"tuned must be a TunedConfig, got "
+                        f"{type(tuned).__name__}")
+    if gather is None:
+        return 0
+    setting = tuned.launch_setting(gather)
+    if not instantiated(gather, counts, setting):
+        raise ValueError(f"gather.cu has no {gather} setting {setting} "
+                         f"{'with' if counts else 'without'} counts")
+    return setting
+
+
+def _check_gather(ids, vals, means_t, mode: int, setting: int):
     _check_tuples(ids, vals)
     _need(means_t, "means_t", torch.float32, 2)
     on_cuda = _on_cuda(ids, vals, means_t)
@@ -72,23 +96,30 @@ def _check_gather(ids, vals, means_t):
         _contiguous(("ids", ids), ("vals", vals), ("means_t", means_t))
         from repro_torch.kernels.esicp_gather import library
 
-        if ids.shape[0] > library().gather_max_rows():
-            raise ValueError(f"{ids.shape[0]} rows exceed one gather launch; "
-                             "pass the rows in batches")
+        if ids.shape[0] > library().gather_max_rows(mode, setting):
+            raise ValueError(f"{ids.shape[0]} rows exceed one gather launch "
+                             f"at tile setting {setting}; pass the rows in "
+                             "batches")
     return on_cuda
 
 
 def sparse_sim(ids, vals, means_t, *, with_counts: bool = False,
-               square: bool = False):
+               square: bool = False, tuned=None):
     """(B, K) float32 sims [and (B, K) int32 counts, else None].
 
     ``square`` gathers m² in place of m (Σ v·m², counted as
-    ``sparse_sim_square``); it takes no counts.
+    ``sparse_sim_square``); it takes no counts and launches setting 0.
+    ``tuned``: the :class:`repro_torch.tune.TunedConfig` whose
+    ``sims_setting`` and grid order the launch takes (None: setting 0).
     """
+    from repro_torch.kernels.esicp_gather import SIMS, SQUARE
+
     if square and with_counts:
         raise ValueError("the squared variant computes no counts")
     name = "sparse_sim_square" if square else "sparse_sim"
-    if not _check_gather(ids, vals, means_t):
+    setting = _setting(tuned, None if square else "sims", with_counts)
+    if not _check_gather(ids, vals, means_t, SQUARE if square else SIMS,
+                         setting):
         PLAIN[name] += 1
         return ref.sparse_sim(ids, vals, means_t, with_counts=with_counts,
                               square=square)
@@ -100,19 +131,26 @@ def sparse_sim(ids, vals, means_t, *, with_counts: bool = False,
               if with_counts else None)
     if b and k:
         kern.launch(ids, vals, means_t, means_t.shape[0], sims, counts,
-                    square=square)
+                    square=square, setting=setting)
         LAUNCHES[name] += 1
     return sims, counts
 
 
 def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False,
-                 v_ta=None):
+                 v_ta=None, tuned=None):
     """(rho12, y, sims) float32 (B, K) [and int32 counts, else None].
 
     ``v_ta`` (B,) float32 replaces the shared ``v_th`` by a threshold per
-    row (TA-ICP; counted as ``esicp_gather_ta``).
+    row (TA-ICP; counted as ``esicp_gather_ta``; setting 0).  ``tuned``:
+    the :class:`repro_torch.tune.TunedConfig` whose ``esicp_setting`` and
+    grid order the launch takes (None: setting 0).
     """
-    on_cuda = _check_gather(ids, vals, means_t)
+    from repro_torch.kernels.esicp_gather import ESICP, TA
+
+    setting = _setting(tuned, None if v_ta is not None else "esicp",
+                       with_counts)
+    on_cuda = _check_gather(ids, vals, means_t,
+                            TA if v_ta is not None else ESICP, setting)
     name = "esicp_gather"
     if v_ta is not None:
         name = "esicp_gather_ta"
@@ -134,7 +172,7 @@ def esicp_gather(ids, vals, means_t, t_th, v_th, *, with_counts: bool = False,
     if b and k:
         if v_ta is None:
             kern.launch(ids, vals, means_t, means_t.shape[0], t_th, v_th,
-                        rho12, y, sims, counts)
+                        rho12, y, sims, counts, setting=setting)
         else:
             kern.launch_ta(ids, vals, means_t, means_t.shape[0], t_th, v_ta,
                            rho12, y, sims, counts)

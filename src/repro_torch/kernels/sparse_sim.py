@@ -40,15 +40,18 @@ from repro_torch.kernels.ref import sparse_sim as plain  # noqa: F401
 
 
 def launch(ids, vals, means_t, dim: int, sims, counts, *,
-           square: bool = False) -> None:
-    """Launch on the current stream; operands are checked by kernels/ops."""
+           square: bool = False, setting: int = 0) -> None:
+    """Launch on the current stream at tile ``setting`` (0-7,
+    ``gather_setting_launch``; the autotuner picks it, square has 0 and 4
+    only); operands are checked by kernels/ops."""
     lib = library()
     b, p = ids.shape
     k = means_t.shape[1]
-    rc = lib.sparse_sim_launch(
-        ids.data_ptr(), vals.data_ptr(), means_t.data_ptr(), b, p, dim, k,
-        int(square), sims.data_ptr(),
+    mode = SQUARE if square else SIMS
+    rc = lib.gather_setting_launch(
+        mode, setting, ids.data_ptr(), vals.data_ptr(), means_t.data_ptr(),
+        b, p, dim, k, 0.0, 0.0, None, None, None, sims.data_ptr(),
         None if counts is None else counts.data_ptr(),
-        scratch(lib, ids, dim, SQUARE if square else SIMS).data_ptr(),
+        scratch(lib, ids, dim, mode, setting).data_ptr(),
         _build.stream_ptr(ids.device))
     _build.check(lib, "gather", rc)

@@ -34,7 +34,7 @@ def _check_kind(spec: LayerSpec) -> None:
     if spec.kind not in ATTN_KINDS:
         raise NotImplementedError(
             f"layer kind {spec.kind!r} is not ported (ROADMAP.md Queue 1 "
-            f"item 16); the port runs {ATTN_KINDS}")
+            f"item 3); the port runs {ATTN_KINDS}")
 
 
 def layer_specs(cfg: ModelConfig) -> list[LayerSpec]:

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.cluster.classify import _classify_fused, _routed_fused
+from repro_torch.cluster.model import seed_tuned_cache
 
 DEFAULT_BATCH_SIZES = (8, 16, 32, 64, 128, 256)
 
@@ -105,7 +106,10 @@ class ServableClusterModel:
     device:      ``"cuda"`` (default; raises without a GPU) or ``"cpu"``
                  (eager, the plain versions).  The index is moved there.
 
-    The artifact's ``tuned`` field is not read (the port has no autotuner).
+    Building the servable puts the artifact's ``cuda_tuned`` winner into
+    the autotuner's cache, as ``FittedModel.load`` does, so an in-memory
+    hand-off from a fit gets it too; the classify itself launches the
+    default tiles (``repro``'s servers read no tuned config either).
     A two-level artifact serves through the routed classify at its
     ``n_probe`` (``n_probe`` = K_c is the flat classify over its fine
     means, and serves as one).
@@ -117,6 +121,7 @@ class ServableClusterModel:
         if not sizes or sizes[0] < 1:
             raise ValueError(f"batch_sizes must be positive, got {batch_sizes}")
         self.device = resolve_device(device)
+        seed_tuned_cache(getattr(model, "cuda_tuned", None))
         self.model = model
         self.index = model.index.to(self.device)
         self.n_probe = int(getattr(model, "n_probe", 0) or 0)

@@ -1031,3 +1031,166 @@ def test_refit_on_card_equals_cpu_and_store(dev, serve_models):
                  "rho_gather"):
         assert ops.LAUNCHES[name] > 0, name
     assert all(v == 0 for v in ops.PLAIN.values()), ops.PLAIN
+
+
+# ---------------------------------------------------------------------------
+# The autotuner's settings (repro_torch.tune) on the card.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("setting", range(8))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tuned_gathers_equal_plain(dev, setting, shape):
+    """Every setting a tuned fit can launch, through the wrappers: sims
+    with counts and without, esicp with counts, bit for bit."""
+    from repro_torch.tune import TunedConfig
+
+    ids, vals, means, _ = _inputs(*shape, seed=21)
+    g = [x.to(dev) for x in (ids, vals, means)]
+    cfg = TunedConfig(sims_setting=setting % 4, esicp_setting=setting % 4,
+                      slab_fastest=setting >= 4)
+    t_th, v_th = int(0.6 * shape[2]), 0.3
+    ops.reset_counts()
+    for counts in (True, False):
+        got = ops.sparse_sim(*g, with_counts=counts, tuned=cfg)
+        want = ref.sparse_sim(*g, with_counts=counts)
+        assert torch.equal(got[0], want[0])
+        assert not counts or torch.equal(got[1], want[1])
+    got = ops.esicp_gather(*g, t_th, v_th, with_counts=True, tuned=cfg)
+    want = ref.esicp_gather(*g, t_th, v_th, with_counts=True)
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    assert ops.LAUNCHES["sparse_sim"] == 2
+    assert ops.LAUNCHES["esicp_gather"] == 1
+
+
+def test_port_tile_table_equals_the_library(dev):
+    """tune/config.py's copy of gather.cu's tile table and of which
+    (gather, counts, setting) it instantiates."""
+    from repro_torch.kernels import esicp_gather as kern
+    from repro_torch.tune.config import MODES, TILES, instantiated
+
+    lib = kern.library()
+    for gather, tiles in TILES.items():
+        mode = MODES[gather]
+        for s in range(8):
+            assert lib.gather_tile_docs(mode, s) == tiles[s % 4][0]
+            for counts in (0, 1):
+                n = lib.gather_blocks_per_sm(mode, s, counts)
+                assert (n >= 1) == instantiated(gather, counts, s), (
+                    gather, s, counts, n)
+    assert lib.gather_tile_docs(kern.SIMS, 8) == -1
+
+
+def test_scratch_and_row_ceiling_per_setting(dev):
+    """A 7-document tile needs more plan scratch than a 14-document one,
+    and each setting has its own row ceiling, which the wrapper checks."""
+    from repro_torch.kernels import esicp_gather as kern
+    from repro_torch.tune import TunedConfig
+
+    lib = kern.library()
+    b, p, d = 4096, 431, 495_126
+    s0 = lib.gather_scratch_bytes(b, p, d, kern.ESICP, 0)
+    s1 = lib.gather_scratch_bytes(b, p, d, kern.ESICP, 1)
+    assert s1 > s0 > 0
+    assert kern.scratch(lib, torch.zeros((b, p), dtype=torch.int32,
+                                         device=dev), d, kern.ESICP,
+                        1).numel() == s1
+    for mode in (kern.SIMS, kern.SQUARE, kern.ESICP, kern.TA):
+        for s in range(8):
+            bt = lib.gather_tile_docs(mode, s)
+            assert lib.gather_max_rows(mode, s) == (65535 * bt if bt > 0
+                                                    else -1)
+    rows = 65535 * 7 + 1            # past setting 1's ceiling, not 0's
+    ids = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
+    vals = torch.ones((rows, 1), device=dev)
+    means = torch.rand((4, 1), device=dev)
+    with pytest.raises(ValueError, match="setting 1"):
+        ops.esicp_gather(ids, vals, means, 2, 0.5, with_counts=True,
+                         tuned=TunedConfig(esicp_setting=1))
+    got = ops.esicp_gather(ids, vals, means, 2, 0.5, with_counts=True)
+    assert torch.equal(got[2], ref.esicp_gather(ids, vals, means, 2, 0.5)[2])
+
+
+@pytest.fixture
+def clean_tuner():
+    from repro_torch.tune import TUNED_CACHE
+
+    TUNED_CACHE.clear()
+    yield TUNED_CACHE
+    TUNED_CACHE.clear()
+
+
+def _same_fit(got, want):
+    assert got.n_iter == want.n_iter
+    for ha, hb in zip(got.history, want.history):
+        assert {f: v for f, v in ha.items() if f != "elapsed_s"} == \
+            {f: v for f, v in hb.items() if f != "elapsed_s"}
+    assert torch.equal(got.assign, want.assign)
+    assert torch.equal(got.state.rho_self, want.state.rho_self)
+    assert torch.equal(got.state.index.means_t, want.state.index.means_t)
+
+
+@pytest.mark.parametrize("algo", ["esicp", "bounds", "cs-icp", "minibatch"])
+def test_tuned_fit_equals_untuned_on_card(dev, clean_tuner, algo):
+    """A fit at a decidedly non-default setting, cached for its corpus,
+    equals the untuned fit bit for bit (resident, or the streaming
+    minibatch fit); the result carries the config."""
+    from repro_torch.core.lloyd import lloyd_fit, streaming_fit
+    from repro_torch.core.update import draw_seed_rows
+    from repro_torch.data import CorpusSpec, make_corpus
+    from repro_torch.sparse.store import DocStore
+    from repro_torch.tune import TunedConfig, corpus_signature
+
+    docs, df, _, _ = make_corpus(CorpusSpec(n_docs=1500, vocab=3000,
+                                            nt_mean=40, n_topics=8, seed=5),
+                                 device="cuda")
+    k = 300
+    kw = dict(k=k, batch_size=512, seed_rows=draw_seed_rows(1500, k, seed=5),
+              df=df, device="cuda", max_iter=4)
+    if algo == "minibatch":
+        store = DocStore.from_docs(docs.to("cpu"), chunk_size=500)
+        fit = lambda **t: streaming_fit(store, algo_mode="minibatch", **kw,
+                                        **t)
+        sig_docs = store.chunk(0).slice_rows(0, 500).to(dev)
+    else:
+        fit = lambda **t: lloyd_fit(docs, algo=algo, **kw, **t)
+        sig_docs = docs
+    want = fit()
+    cfg = clean_tuner.put(
+        corpus_signature(sig_docs.ids, sig_docs.vals, dim=docs.dim, k=k),
+        TunedConfig(sims_setting=2, esicp_setting=1, slab_fastest=True,
+                    source="manual"))
+    ops.reset_counts()
+    got = fit(tune="cached")
+    assert got.tuned == cfg
+    _same_fit(got, want)
+    assert all(v == 0 for v in ops.PLAIN.values()), ops.PLAIN
+
+
+def test_search_on_card_caches_and_reuses(dev, clean_tuner):
+    """ensure_tuned's modes on CUDA operands, and a searched fit equal to
+    the untuned one; a second fit hits the cache."""
+    from repro_torch.core.lloyd import lloyd_fit
+    from repro_torch.data import CorpusSpec, make_corpus
+    from repro_torch.tune import SearchBudget, ensure_tuned
+
+    docs, df, _, _ = make_corpus(CorpusSpec(n_docs=1200, vocab=2048,
+                                            nt_mean=40, n_topics=8, seed=6),
+                                 device="cuda")
+    budget = SearchBudget(max_timed=3, repeat=1, probe_rows=512)
+    assert ensure_tuned(docs, k=40, mode="cached") is None
+    cfg = ensure_tuned(docs, k=40, mode="search", budget=budget)
+    assert cfg is not None and cfg.signature.startswith(
+        torch.cuda.get_device_name(dev) + "/")
+    stats = clean_tuner.last_search
+    assert clean_tuner.searches == 1 and stats.n_timed <= 3
+    assert stats.probe_bytes == docs.dim * 40 * 4 and stats.peak_bytes > 0
+    assert ensure_tuned(docs, k=40, mode="cached") == cfg
+    clean_tuner.clear()
+    kw = dict(k=40, batch_size=400, df=df, device="cuda", max_iter=3)
+    want = lloyd_fit(docs, **kw)
+    got = lloyd_fit(docs, tune="search", tune_budget=budget, **kw)
+    assert clean_tuner.searches == 1 and got.tuned is not None
+    _same_fit(got, want)
+    again = lloyd_fit(docs, tune="search", tune_budget=budget, **kw)
+    assert clean_tuner.searches == 1 and again.tuned == got.tuned

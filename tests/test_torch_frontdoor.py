@@ -205,10 +205,14 @@ def test_estimator_surface_and_unported_runtimes(fitted):
         km.predict(None)
     with pytest.raises(AttributeError, match="only available after fit"):
         km.labels_
-    for kw, item in ((dict(mesh=object()), "item 7"),
-                     (dict(tune="cached"), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            SphericalKMeans(8, device="cpu", **kw).fit(None)
+    with pytest.raises(NotImplementedError, match="item 2"):
+        SphericalKMeans(8, device="cpu", mesh=object()).fit(None)
+    # The autotuner is ported: on the CPU it is a no-op (no tiles to tune).
+    tuned = SphericalKMeans(4, max_iter=3, device="cpu", tune="cached",
+                            tune_budget=2).fit(head,
+                                               seed_rows=torch.arange(4))
+    assert torch.equal(tuned.labels_, small.labels_)
+    assert tuned.model_.cuda_tuned is None
     with pytest.raises(ValueError, match="coarse_k must be < k"):
         SphericalKMeans(8, coarse_k=8, device="cpu").fit(None)
     with pytest.raises(ValueError, match="algo_mode"):

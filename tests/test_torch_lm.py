@@ -228,9 +228,9 @@ def test_configs_match_repro():
 @pytest.mark.parametrize("arch", [a for a in registry.REPRO_ARCHS
                                   if a != "gemma3-1b"])
 def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         registry.get_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         registry.smoke_config(arch)
 
 
@@ -239,7 +239,7 @@ def test_unported_layer_kinds_and_cache_raise():
         registry.get_config("gpt-9")
     for arch in ("granite-moe-3b-a800m", "xlstm-125m", "zamba2-2.7b"):
         cfg = _port_config(repro_smoke(arch))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
             init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     cfg = dataclasses.replace(gemma3_1b.smoke_config(), kv_dtype="int8")
     with pytest.raises(NotImplementedError, match="int8"):
