@@ -151,6 +151,27 @@ Then the out-of-core plane, the resident corpus moved off the card:
              temporary directory, the cache cleared, the model loaded
              (its winner back in the cache) and a ``tune="cached"`` fit of
              one iteration that runs no search.
+11b. mesh  — the mesh runtime (``repro_torch.distributed.mesh_fit``):
+             (a) a world of one (NCCL, in this process) at the NYT widths,
+             esicp, ``--max-iter`` iterations from phase 5's seed rows, on a
+             fresh corpus object (the earlier fits' term-major layout
+             freed: the fit builds one per λ span of its rows),
+             counters zeroed just before and read just after: every
+             iteration's assignment, ρ_self, the means (per-column sums of
+             their bit patterns), the history and ``make_assign_fn``'s
+             classify equal phase 5's bit for bit, the peak at most phase
+             5's + 1 GiB, esicp_gather, esicp_filter, segment_update (with
+             and without ``init``), rho_gather and sparse_sim launched, no
+             plain version; (b) two spawned ranks at (1, 2), gloo on CUDA
+             tensors sharing the card (NCCL refuses two ranks on one
+             device), the corpus read from a disk store: each rank equal
+             to phase 5's fit bit for bit, its seconds per iteration and
+             peak printed; (c) (2, 1) and (2, 2) at 20,000 documents, K
+             1,000, 3 iterations: assignments equal a world of one's,
+             means within 1e-6,
+             the mesh classify equal to ``classify_docs`` bit for bit.  The
+             spawned ranks load the kernels phase 2 built; each world has
+             a time limit, and a failed rank fails the run.
 
 Then, with the clustering phases' memory freed, the LM serving path
 (gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``):
@@ -264,7 +285,17 @@ PATH_KERNELS = {
     # the esicp fits with tune="search" and, after a load, "cached"
     "tune": ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
              "sparse_sim"),
+    # the mesh fits (λ span by span: segment_update, then its init launch)
+    # and the mesh classify
+    "mesh": ("esicp_gather", "esicp_filter", "segment_update",
+             "segment_update_init", "rho_gather", "sparse_sim"),
 }
+# The mesh phase: a spawned world's time limit, and the size of the
+# (2, 1) and (2, 2) worlds.
+MESH_WORLD_TIMEOUT = 600.0
+MESH_SMALL_DOCS = 20_000
+MESH_SMALL_K = 1_000
+MESH_SMALL_ITER = 3
 # The two-level phase: K_c = sqrt(K), the ratio of repro's IVF benchmark
 # (BENCH_ivf.json: K 4096, K_c 64).
 IVF_COARSE_K = 100
@@ -2604,6 +2635,306 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
     return launches["flash_attention"], run_launches
 
 
+# ---------------------------------------------------------------------------
+# The mesh runtime: a world of one in this process, then worlds of spawned
+# ranks sharing the card (gloo on CUDA tensors: NCCL refuses two ranks on
+# one device).
+# ---------------------------------------------------------------------------
+
+def column_sums(torch, means_t):
+    """(2, K) int64 on the host: per column, the sum of the float32 bit
+    patterns and their sum weighted by row index + 1 (both wrapping in
+    int64).  Equal sums mean equal columns bit for bit but for a
+    collision; a column of one block sums as that column of the whole."""
+    from repro_torch.core.meanindex import row_chunks
+
+    d, k = means_t.shape
+    out = torch.zeros((2, k), dtype=torch.int64, device=means_t.device)
+    for s, e in row_chunks(d, k):
+        bits = means_t[s:e].view(torch.int32).long()
+        out[0] += bits.sum(dim=0)
+        w = torch.arange(s + 1, e + 1, device=means_t.device)[:, None]
+        out[1] += (bits * w).sum(dim=0)
+    return out.cpu()
+
+
+def _mesh_rank(store_dir: str, df_path: str, shape, axes, k: int,
+               max_iter: int, obj_chunk: int, ref_path):
+    """One spawned rank of a mesh world on the card: the kernels phase 2
+    built (none compiled again), the esicp mesh fit over the disk store
+    and the mesh classify of its rows (counters zeroed before, read
+    after), its block's column sums; with ``ref_path`` (the
+    world of one's means) also its block's max abs error against them and
+    the mesh classify against ``classify_docs`` on the gathered means."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import classify_docs
+    from repro_torch.core.meanindex import build_mean_index, row_chunks
+    from repro_torch.distributed.kmeans import (_local_docs, gather_state,
+                                                make_assign_fn, mesh_fit)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sparse.store import DocStore
+
+    rebuilt = sorted(_build.build())      # phase 2 built every source
+    mesh = make_mesh(shape, axes, device="cuda")
+    store = DocStore.open(store_dir)
+    df = np.load(df_path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    traj = []
+    t0 = time.perf_counter()
+    state, hist, _, params = mesh_fit(store, k, mesh, max_iter=max_iter,
+                                      obj_chunk=obj_chunk, df=df,
+                                      trajectory=traj)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    geo = state.geo
+    local = _local_docs(store, geo, mesh.device)
+    labels, sims = make_assign_fn(mesh, k=k, obj_chunk=obj_chunk)(
+        local, state.means_t)
+    torch.cuda.synchronize()
+    out = dict(rank=mesh.rank, k0=geo.k0, row0=geo.row0, n_real=geo.n_real,
+               history=hist, traj=[t.numpy() for t in traj],
+               rho=state.rho_self[:geo.n_real].cpu().numpy(),
+               sums=column_sums(torch, state.means_t).numpy(),
+               labels=labels.cpu().numpy(), sims=sims.cpu().numpy(),
+               fit_s=fit_s, peak=torch.cuda.max_memory_allocated(),
+               launches=dict(ops.LAUNCHES), plain=dict(ops.PLAIN),
+               rebuilt=rebuilt)
+    if ref_path is not None:
+        ref = np.load(ref_path, mmap_mode="r")
+        err = 0.0
+        for s, e in row_chunks(*state.means_t.shape):
+            want = torch.from_numpy(np.array(
+                ref[s:e, geo.k0:geo.k0 + geo.k_loc])).to(mesh.device)
+            err = max(err, float((state.means_t[s:e] - want).abs().max()))
+        out["means_err"] = err
+        means_t = gather_state(mesh, state)[0]
+        del state
+        a, s = classify_docs(build_mean_index(means_t, params), local,
+                             batch_size=obj_chunk)
+        out["classify_equal"] = bool(torch.equal(a, labels)
+                                     and torch.equal(s, sims))
+    return out
+
+
+def _mesh_world(torch, shape, store_dir, df_path, k, max_iter, ref_path,
+                tmp):
+    from repro_torch.launch.mesh import run_local_world
+
+    n = 1
+    for s in shape:
+        n *= s
+    axes = ("data", "model")
+    t = time.perf_counter()
+    outs = run_local_world(_mesh_rank, n, backend="gloo", threads=2,
+                           timeout=MESH_WORLD_TIMEOUT, workdir=tmp,
+                           args=(store_dir, df_path, shape, axes, k,
+                                 max_iter, BATCH, ref_path))
+    wall = time.perf_counter() - t
+    for o in outs:
+        require(not o["rebuilt"], f"mesh {shape} rank {o['rank']} built "
+                f"{o['rebuilt']} again")
+        require(all(v == 0 for v in o["plain"].values()),
+                f"mesh {shape} rank {o['rank']}: a plain version ran: "
+                f"{o['plain']}")
+        log(f"  mesh {shape} rank {o['rank']} (rows from {o['row0']}, "
+            f"columns from {o['k0']}): fit {o['fit_s']:.2f} s, s per "
+            f"iteration {[round(h['elapsed_s'], 3) for h in o['history']]},"
+            f" peak {o['peak'] / 2**30:.2f} GiB")
+    log(f"  mesh {shape}: {n} ranks, {wall:.1f} s from spawn to the last "
+        f"result")
+    return outs
+
+
+def _sum_launches(launches, outs):
+    for o in outs:
+        for name in launches:
+            launches[name] += o["launches"][name]
+
+
+def _stitch(outs, n_docs: int, field: str, index=None):
+    """The rows of the ranks of model index 0 (k0 == 0), by row offset."""
+    import numpy as np
+
+    full = None
+    for o in outs:
+        if o["k0"]:
+            continue
+        part = o[field] if index is None else o[field][index]
+        if full is None:
+            full = np.zeros((n_docs,), part.dtype)
+        full[o["row0"]:o["row0"] + o["n_real"]] = part
+    return full
+
+
+def mesh_record(torch, model, cls) -> dict:
+    """What the mesh phase holds its world of one and (1, 2) to, on the
+    host: phase 5's history, trajectory, ρ_self, classify, and its means'
+    column sums (:func:`column_sums`)."""
+    return dict(history=model.history, traj=model.trajectory,
+                rho=model.rho_self.cpu(),
+                sums=column_sums(torch, model.index.means_t),
+                labels=cls[0].cpu(), sims=cls[1].cpu())
+
+
+def mesh_phase(torch, docs, df, ref5: dict, max_iter: int, flat_peak: int):
+    """The mesh runtime on the card.  (a) A world of one (NCCL, in this
+    process) at the NYT widths from phase 5's seed rows: every iteration's
+    assignment, ρ_self, the means (column sums), the history and the mesh
+    classify equal phase 5's bit for bit, its peak at most phase 5's +
+    1 GiB, the path's kernels launched (segment_update with and without
+    ``init``), no plain version.  (b) Two spawned ranks at (1, 2), gloo on
+    CUDA tensors sharing the card, the corpus from a disk store: equal to
+    (a) bit for bit, each rank's peak and seconds printed.  (c) (2, 1)
+    and (2, 2) at MESH_SMALL_DOCS documents, K MESH_SMALL_K,
+    MESH_SMALL_ITER iterations: assignments
+    equal a world of one's, means within 1e-6, the mesh classify equal to
+    ``classify_docs`` bit for bit.  Returns the launches summed over the
+    worlds' ranks."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.distributed.kmeans import (LAMBDA_SPAN, make_assign_fn,
+                                                mesh_fit)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = phase(f"mesh: mesh_fit k={NYT_K} esicp, a world of one (NCCL), "
+               f"(1, 2) on one card (gloo); (2, 1), (2, 2) at "
+               f"{MESH_SMALL_DOCS} documents, k={MESH_SMALL_K}")
+    launches = dict.fromkeys(PATH_KERNELS["mesh"], 0)
+    n = docs.n_docs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_counts()
+            traj = []
+            state, hist, _, _ = mesh_fit(docs, NYT_K, mesh,
+                                         max_iter=max_iter, obj_chunk=BATCH,
+                                         df=df, trajectory=traj)
+            labels, sims = make_assign_fn(mesh, k=NYT_K, obj_chunk=BATCH)(
+                docs, state.means_t)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            got, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+            log("  world of one: s per iteration "
+                f"{[round(h['elapsed_s'], 3) for h in hist]} against phase "
+                f"5's {[round(h['elapsed_s'], 3) for h in ref5['history']]}"
+                f"; peak {peak / 2**30:.2f} GiB against phase 5's "
+                f"{flat_peak / 2**30:.2f}")
+            log(f"  world of one: launches {got}")
+            # One λ span (a cut run) launches no init.
+            need = [name for name in launches
+                    if name != "segment_update_init" or n > LAMBDA_SPAN]
+            require(all(got[name] > 0 for name in need),
+                    f"a kernel of the mesh path never launched: {got}")
+            require(all(v == 0 for v in plain.values()),
+                    f"a plain version ran on the mesh path: {plain}")
+            require(peak <= flat_peak + (1 << 30),
+                    f"the world of one's peak {peak} is above phase 5's "
+                    f"{flat_peak} + 1 GiB")
+            _same_as_phase5(torch, ref5, hist, [t for t in traj],
+                            state.rho_self[:n].cpu(),
+                            column_sums(torch, state.means_t), labels.cpu(),
+                            sims.cpu(), "world of one")
+            for name in launches:
+                launches[name] += got[name]
+            del state, labels, sims
+            torch.cuda.empty_cache()
+
+            # (c)'s reference: a world of one at the reduced size.
+            small = docs.slice_rows(0, MESH_SMALL_DOCS)
+            small_df = small.df
+            state, hist1, _, _ = mesh_fit(small, MESH_SMALL_K, mesh,
+                                          max_iter=MESH_SMALL_ITER,
+                                          obj_chunk=BATCH, df=small_df)
+            small_assign = state.assign[:MESH_SMALL_DOCS].cpu().numpy()
+            ref_path = os.path.join(tmp, "small_means.npy")
+            np.save(ref_path, state.means_t.cpu().numpy())
+            del state
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        # (b) two ranks at (1, 2), the corpus from a disk store.
+        big_dir, small_dir = (os.path.join(tmp, d) for d in ("big", "small"))
+        os.makedirs(big_dir)
+        os.makedirs(small_dir)
+        write_store(docs.to("cpu"), big_dir)
+        np.save(os.path.join(tmp, "df.npy"), df.cpu().numpy())
+        outs = _mesh_world(torch, (1, 2), big_dir,
+                           os.path.join(tmp, "df.npy"), NYT_K, max_iter,
+                           None, tmp)
+        _sum_launches(launches, outs)
+        for o in outs:
+            want = ref5["sums"][:, o["k0"]:o["k0"] + NYT_K // 2]
+            _same_as_phase5(torch, ref5, o["history"],
+                            [torch.from_numpy(t) for t in o["traj"]],
+                            torch.from_numpy(o["rho"]),
+                            torch.from_numpy(o["sums"]),
+                            torch.from_numpy(o["labels"]),
+                            torch.from_numpy(o["sims"]),
+                            f"(1, 2) rank {o['rank']}", sums_want=want)
+        log("  (1, 2): both ranks equal phase 5's fit bit for bit (every "
+            "iteration's assignment, ρ_self, means column sums, history, "
+            "mesh classify)")
+
+        # (c) (2, 1) and (2, 2) at the reduced size.
+        write_store(small.to("cpu"), small_dir)
+        np.save(os.path.join(tmp, "df_small.npy"), small_df.cpu().numpy())
+        for shape in ((2, 1), (2, 2)):
+            outs = _mesh_world(torch, shape, small_dir,
+                               os.path.join(tmp, "df_small.npy"),
+                               MESH_SMALL_K, MESH_SMALL_ITER, ref_path, tmp)
+            _sum_launches(launches, outs)
+            got = _stitch(outs, MESH_SMALL_DOCS, "traj", -1)
+            require(np.array_equal(got, small_assign),
+                    f"mesh {shape}: assignments differ from the world of "
+                    f"one's in {int((got != small_assign).sum())} rows")
+            err = max(o["means_err"] for o in outs)
+            require(err <= 1e-6, f"mesh {shape}: means {err} from the "
+                    f"world of one's")
+            require(all(o["classify_equal"] for o in outs),
+                    f"mesh {shape}: make_assign_fn differs from "
+                    "classify_docs")
+            log(f"  mesh {shape}: assignments equal the world of one's, "
+                f"means within {err:.3g}, the mesh classify equal to "
+                f"classify_docs bit for bit; history "
+                f"{[h['n_changed'] for h in outs[0]['history']]} changed "
+                f"against {[h['n_changed'] for h in hist1]}")
+    log(f"  mesh launches (all worlds, summed over ranks): {launches}")
+    log(f"mesh phase done in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _same_as_phase5(torch, ref5, hist, traj, rho, sums, labels, sims, what,
+                    sums_want=None):
+    """A mesh fit against phase 5's, bit for bit."""
+    fields = ("iteration", "n_changed", "n_candidates", "cpr", "objective",
+              "t_th", "v_th")
+    strip = lambda h: {f: h[f] for f in fields}
+    require([strip(h) for h in hist] == [strip(h) for h in ref5["history"]],
+            f"{what}: history differs from phase 5's: {hist} vs "
+            f"{ref5['history']}")
+    require(len(traj) == len(ref5["traj"]) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(traj, ref5["traj"])),
+        f"{what}: an iteration's assignment differs from phase 5's")
+    require(torch.equal(rho, ref5["rho"]), f"{what}: ρ_self differs")
+    require(torch.equal(sums, ref5["sums"] if sums_want is None
+                        else sums_want), f"{what}: means differ")
+    require(torch.equal(labels, ref5["labels"])
+            and torch.equal(sims, ref5["sims"]),
+            f"{what}: the mesh classify differs from phase 5's classify")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=200_000,
@@ -2638,6 +2969,7 @@ def main() -> int:
     build_phase()
 
     from repro_torch.data import CorpusSpec, make_corpus
+    from repro_torch.sparse.matrix import with_df
 
     t0 = phase("corpus")
     spec = CorpusSpec(n_docs=args.n_docs, vocab=NYT_VOCAB,
@@ -2651,6 +2983,7 @@ def main() -> int:
     variant_launches, small = small_phase(torch, args.seed, args.small_iter)
     launches, model, cls, flat_peak, flat_own = main_phase(torch, docs, df,
                                                  args.max_iter)
+    ref5 = mesh_record(torch, model, cls)
     breakdown_phase(torch, docs, df, model)
     serve_launches, refit_rec = serving_phase(torch, docs, model, cls,
                                               args.seed)
@@ -2730,7 +3063,20 @@ def main() -> int:
         paths[name].append("tuned fits (search; cached after a load)")
     for name, ms in settings_ms.items():
         rows[name].setdefault("extra", {})["settings_ms"] = ms
-    del docs, df
+    # The mesh fit builds a term-major layout for each λ span of its rows;
+    # the layout the earlier fits built for the corpus would sit beside
+    # them (with it, the world of one's peak rose 2.37 GiB above phase
+    # 5's on the full corpus).  A fresh corpus object drops it, so the
+    # peak compares with phase 5's, which built one layout.
+    docs = with_df(docs, df)
+    torch.cuda.empty_cache()
+    got = mesh_phase(torch, docs, df, ref5, args.max_iter, flat_peak)
+    for name in PATH_KERNELS["mesh"]:
+        launches[name] += got[name]
+        paths.setdefault(name, []).append(
+            "mesh fits and mesh classify (world of one, (1, 2), (2, 1), "
+            "(2, 2))")
+    del docs, df, ref5
     torch.cuda.empty_cache()
 
     rows["flash_attention"] = lm_kernel_phase(torch, args.seed)

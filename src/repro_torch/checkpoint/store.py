@@ -138,6 +138,15 @@ def load_extra(directory: str, *, step: int | None = None) -> dict | None:
         return json.load(f)
 
 
+def load_manifest(directory: str, *, step: int | None = None) -> dict:
+    """The manifest of ``step`` (None -> latest): its leaves' shapes and
+    dtypes, in the order of the tree's sorted keys."""
+    step = _step_or_latest(directory, step)
+    with open(os.path.join(directory, f"step_{step:08d}",
+                           "manifest.json")) as f:
+        return json.load(f)
+
+
 def restore_checkpoint(directory: str, example_tree, *,
                        step: int | None = None):
     """-> (tree of numpy arrays in ``example_tree``'s structure, step).

@@ -6,7 +6,9 @@
     model.save(path); model = load_model(path)
     engine = ClusterEngine.from_model(model)   # serve, refit, hot-swap
 
-``docs`` may be resident SparseDocs or a DocStore (the streaming fit).
+``docs`` may be resident SparseDocs or a DocStore (the streaming fit);
+``ClusterConfig(mesh=...)`` fits on the mesh runtime (every rank calls
+``fit``).
 ``ClusterConfig(coarse_k=K_c, n_probe=)`` fits the two-level IVF model
 (:class:`TwoLevelFittedModel`), whose ``predict`` is
 :func:`classify_docs_routed`; :func:`two_level_from_means` wraps given
@@ -21,7 +23,8 @@ from repro_torch.cluster.config import ClusterConfig
 from repro_torch.cluster.estimator import SphericalKMeans
 from repro_torch.cluster.model import (FittedModel, TwoLevelFittedModel,
                                        load_model)
-from repro_torch.cluster.strategies import (STRATEGIES, SingleHostStrategy,
+from repro_torch.cluster.strategies import (STRATEGIES, MeshStrategy,
+                                            SingleHostStrategy,
                                             StreamingStrategy,
                                             TwoLevelStrategy,
                                             resolve_strategy)
@@ -41,11 +44,11 @@ def fit(docs, config: ClusterConfig, *, df=None, seed_rows=None,
         keep_trajectory=keep_trajectory).model_
 
 
-__all__ = ["ClusterConfig", "ClusterEngine", "FittedModel", "STRATEGIES",
-           "SingleHostStrategy", "SphericalKMeans", "StreamingStrategy",
-           "TwoLevelFittedModel", "TwoLevelStrategy", "classify_docs",
-           "classify_docs_routed", "fit", "load_model", "resolve_strategy",
-           "transform_docs", "two_level_from_means"]
+__all__ = ["ClusterConfig", "ClusterEngine", "FittedModel", "MeshStrategy",
+           "STRATEGIES", "SingleHostStrategy", "SphericalKMeans",
+           "StreamingStrategy", "TwoLevelFittedModel", "TwoLevelStrategy",
+           "classify_docs", "classify_docs_routed", "fit", "load_model",
+           "resolve_strategy", "transform_docs", "two_level_from_means"]
 
 
 def __getattr__(name):

@@ -5,13 +5,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import torch
+
 from repro_torch.core.estparams import EstGrid
 from repro_torch.core.meanindex import StructuralParams
-
-# ROADMAP Queue 1 items of the runtimes the port does not have yet.
-NOT_PORTED = {
-    "mesh": "the mesh runtime (ROADMAP Queue 1 item 2)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,8 +32,12 @@ class ClusterConfig:
     regime, else the defaults) | 'search' (the roofline-pruned autotuner
     on a miss, its winner cached; repro_torch.tune); a no-op on the CPU.
     tune_budget: a repro_torch.tune.SearchBudget (or int max timed) for
-    'search'.  mesh names a runtime the port does not have yet: it raises
-    NotImplementedError."""
+    'search'.  mesh: a :class:`repro_torch.launch.mesh.Mesh` — the same
+    fit on the mesh runtime (the 'mesh' strategy, one of
+    ``MESH_ALGOS``; K divisible by the model axis; ``chunk_size`` is its
+    per-rank object chunk; ``device`` must name the mesh's device type);
+    neither 'minibatch' nor ``coarse_k`` combines with it, as in
+    ``repro``."""
 
     k: int
     algo: str = "esicp"
@@ -115,4 +116,25 @@ class ClusterConfig:
             raise ValueError(
                 f"n_probe must be in [1, coarse_k={self.coarse_k}], got "
                 f"{self.n_probe}")
+        if self.algo_mode == "minibatch" and self.mesh is not None:
+            raise ValueError(
+                "algo_mode='minibatch' runs on the streaming strategy; "
+                "it cannot be combined with mesh=")
+        if self.mesh is not None:
+            from repro_torch.distributed.kmeans import MESH_ALGOS
+
+            if self.algo not in MESH_ALGOS:
+                raise ValueError(
+                    f"algo {self.algo!r} is not available on the mesh "
+                    f"strategy; one of {MESH_ALGOS}")
+            n_model = dict(self.mesh.shape).get("model", 1)
+            if self.k % n_model:
+                raise ValueError(
+                    f"K={self.k} must divide over the mesh's model axis "
+                    f"({n_model})")
+            dev = getattr(self.mesh, "device", None)
+            if dev is not None and dev.type != torch.device(self.device).type:
+                raise ValueError(
+                    f"device={self.device!r} but the mesh's ranks run on "
+                    f"{dev.type}")
         return self

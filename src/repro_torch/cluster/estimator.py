@@ -5,7 +5,9 @@
 ``labels_``, ``history_``, ``state_``, ``params_``, ``n_iter_``,
 ``converged_`` and ``objective_``; ``predict``/``transform``/``score``
 share the classify path (cluster/classify.py).  A DocStore input routes
-the fit through the streaming strategy.  ``repro``'s deprecation shims of
+the fit through the streaming strategy, and ``mesh=`` (a
+:class:`repro_torch.launch.mesh.Mesh`) through the mesh runtime, fitted by
+every rank of the mesh.  ``repro``'s deprecation shims of
 its pre-redesign surface (``fit_result()``, the forwarded legacy result
 attributes) are not ported: the port has no old callers.
 """
@@ -28,8 +30,10 @@ class SphericalKMeans:
     'cpu'; coarse_k / n_probe: the two-level IVF fit, whose ``model_`` is
     the nested :class:`TwoLevelFittedModel`; tune / tune_budget: the
     gathers' autotuner (``ClusterConfig``), whose winner ``model_``
-    carries as ``cuda_tuned``.  mesh= raises NotImplementedError at fit
-    (its runtime is not ported yet)."""
+    carries as ``cuda_tuned``; mesh: a
+    :class:`repro_torch.launch.mesh.Mesh`, the same fit on the mesh
+    runtime (every rank calls ``fit``; ``model_`` is the whole model on
+    every rank)."""
 
     def __init__(self, k: int, *, algo: str = "esicp", params="auto",
                  device: str = "cuda", batch_size: int = 4096,

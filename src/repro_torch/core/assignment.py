@@ -66,9 +66,10 @@ def default_ub(rho_self: torch.Tensor, k: int) -> torch.Tensor:
                       dtype=torch.float32, device=rho_self.device)
 
 
-def _is_own(assign: torch.Tensor, k: int) -> torch.Tensor:
-    """(B, K) bool — True at each object's assigned centroid."""
-    cols = torch.arange(k, device=assign.device)
+def _is_own(assign: torch.Tensor, k: int, k0: int = 0) -> torch.Tensor:
+    """(B, K) bool — True at each object's assigned centroid, the columns
+    being the global ids [k0, k0 + K)."""
+    cols = torch.arange(k0, k0 + k, device=assign.device)
     return cols[None, :] == assign.long()[:, None]
 
 
@@ -78,24 +79,37 @@ def _second_best(sims: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
                             -torch.inf).amax(dim=1)
 
 
-def _group_bounds(b: torch.Tensor, assign: torch.Tensor,
-                  k: int) -> torch.Tensor:
-    """(B, G) per-bound-group max of the per-centroid bounds ``b`` (B, K),
-    each object's assigned centroid excluded.  The ragged final group pads
-    with -inf; a group holding only the assigned centroid refreshes to
-    -inf ('nothing to find here', which drift never loosens)."""
-    masked = b.masked_fill(_is_own(assign, k), -torch.inf)
+def _group_bounds(b: torch.Tensor, assign: torch.Tensor, k: int,
+                  k0: int = 0) -> torch.Tensor:
+    """(B, G) per-bound-group max of the per-centroid bounds ``b``, each
+    object's assigned centroid excluded.  ``b``'s columns are the global
+    ids [k0, k0 + b.shape[1]) of K (all K by default; a mesh's centroid
+    shard passes its slice, and its groups without a column of the slice
+    stay -inf for the reduction over the shards).  The ragged final group
+    pads with -inf; a group holding only the assigned centroid refreshes
+    to -inf ('nothing to find here', which drift never loosens)."""
+    k_loc = b.shape[1]
+    masked = b.masked_fill(_is_own(assign, k_loc, k0), -torch.inf)
     gsz, g = ub_group_size(k), n_ub_groups(k)
-    masked = torch.nn.functional.pad(masked, (0, g * gsz - k),
-                                     value=-torch.inf)
-    return masked.view(b.shape[0], g, gsz).amax(dim=2)
+    lo, hi = k0 // gsz, -(-(k0 + k_loc) // gsz)
+    masked = torch.nn.functional.pad(
+        masked, (k0 - lo * gsz, hi * gsz - k0 - k_loc), value=-torch.inf)
+    local = masked.view(b.shape[0], hi - lo, gsz).amax(dim=2)
+    if (lo, hi) == (0, g):
+        return local
+    out = torch.full((b.shape[0], g), -torch.inf, device=b.device)
+    out[:, lo:hi] = local
+    return out
 
 
-def _group_active(ub: torch.Tensor, rho_self: torch.Tensor, k: int):
-    """((B, G) active groups, (B, K) their centroids): a group whose bound
-    is <= ρ_self cannot hold a strict improver."""
+def _group_active(ub: torch.Tensor, rho_self: torch.Tensor, k: int,
+                  k0: int = 0, k_loc: int | None = None):
+    """((B, G) active groups, (B, K_loc) their centroids, the global ids
+    [k0, k0 + K_loc), all K by default): a group whose bound is <= ρ_self
+    cannot hold a strict improver."""
     ga = ub > rho_self[:, None]
-    return ga, ga[:, ub_group_of(k, ub.device)]
+    cols = ub_group_of(k, ub.device)[k0:k0 + (k if k_loc is None else k_loc)]
+    return ga, ga[:, cols]
 
 
 def _binary(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,8 @@ Differences from ``repro``, all for size or determinism:
   by row chunk, sorts them and interpolates at q·(n−1) in float32 exactly
   as ``jnp.nanquantile`` does;
 * the per-term tables loop over the 24 thresholds in row chunks instead of
-  vmapping over a (D, K) temporary (meanindex.py);
+  vmapping over a (D, K) temporary, in one pass over row blocks
+  (:func:`_est_tables`);
 * the J table is accumulated in float64, so its argmin does not depend on
   the reduction order of the device.
 """
@@ -25,9 +26,7 @@ import math
 
 import torch
 
-from repro_torch.core.meanindex import (StructuralParams, delta_v_bar,
-                                        mean_value_stats, mfh_table,
-                                        row_chunks)
+from repro_torch.core.meanindex import StructuralParams, row_chunks
 from repro_torch.sparse.matrix import SparseDocs
 
 
@@ -86,23 +85,73 @@ def nanquantile(values: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return (low_part + vals[hi].double() * hw.double()).to(torch.float32)
 
 
-def positive_tail(means_t: torch.Tensor, s_min: int) -> torch.Tensor:
-    """1-D float32 positives of rows [s_min, D), gathered row chunk by row
-    chunk (their order is irrelevant: they are sorted next)."""
-    d, k = means_t.shape
-    parts = []
-    for s, e in row_chunks(d - s_min, k):
-        blk = means_t[s_min + s:s_min + e]
-        parts.append(blk[blk > 0])
-    return torch.cat(parts) if parts else means_t.new_zeros((0,))
+def table_row_blocks(d: int, k: int, grid: EstGrid) -> list:
+    """The (start, end) row blocks of the (D, K) means that the tables
+    read, in order: the positive tail's rows [s_min, D), then every row.
+    A mesh whose means are split by columns gathers each block whole to
+    one rank, so the sums over K run on the same (rows, K) blocks as on
+    one device."""
+    s_min = int(grid.s_min_frac * d)
+    return ([(s_min + s, s_min + e) for s, e in row_chunks(d - s_min, k)]
+            + list(row_chunks(d, k)))
 
 
-def _v_candidates(means_t: torch.Tensor, s_min: int,
-                  grid: EstGrid) -> list[float]:
+def _v_candidates(positives: torch.Tensor, grid: EstGrid) -> list[float]:
     qs = linspace_f32(grid.v_quantile_lo, grid.v_quantile_hi, grid.n_v)
-    cand = nanquantile(positive_tail(means_t, s_min), qs)
+    cand = nanquantile(positives, qs)
     cand = torch.where(torch.isnan(cand), 1.0, cand)   # degenerate -> vacuous
     return torch.clamp(cand, min=1e-6).tolist()
+
+
+def _est_tables(df: torch.Tensor, d: int, k: int, block, grid: EstGrid):
+    """Candidate grids, φ1/φ2, and the per-term tables φ̃3 consumes.
+
+    ``block(s, e)`` is rows [s, e) of the (D, K) means, asked for in
+    :func:`table_row_blocks`' order: the positives of the tail rows
+    [s_min, D) (sorted next, so their order is irrelevant) pick the v_th
+    candidates; then one pass over every row counts mf and (mfH)_{s,h}
+    and sums Δv̄ (Eq. 39: relu(v_h − v) in float32, summed in float64
+    over K, absent centroids counted) and Σ_k v_{s,k} (Eq. 32).
+    """
+    dev = df.device
+    s_min = int(grid.s_min_frac * d)
+    blocks = table_row_blocks(d, k, grid)
+    n_tail = len(blocks) - len(list(row_chunks(d, k)))
+    parts = []
+    for s, e in blocks[:n_tail]:
+        blk = block(s, e)
+        parts.append(blk[blk > 0])
+    positives = torch.cat(parts) if parts else torch.zeros((0,), device=dev)
+    del parts
+    s_grid = torch.unique(
+        linspace_f32(s_min, d, grid.n_s).to(torch.int32)).to(dev)
+    v_grid = _v_candidates(positives, grid)
+    del positives
+
+    h = len(v_grid)
+    mf = torch.empty((d,), dtype=torch.float64, device=dev)
+    mfh = torch.empty((d, h), dtype=torch.int32, device=dev)
+    dvbar = torch.empty((d, h), dtype=torch.float64, device=dev)
+    colsum = torch.empty((d,), dtype=torch.float64, device=dev)
+    for s, e in blocks[n_tail:]:
+        blk = block(s, e)
+        mf[s:e] = (blk > 0).sum(dim=1)
+        for j, v_h in enumerate(v_grid):
+            mfh[s:e, j] = (blk >= v_h).sum(dim=1, dtype=torch.int32)
+            dvbar[s:e, j] = torch.clamp(v_h - blk, min=0.0).double().sum(
+                dim=1)
+        colsum[s:e] = blk.double().sum(dim=1)
+    dvbar /= k
+    dff = df.to(dev, torch.float64)
+
+    c1 = torch.cat([dff.new_zeros((1,)), torch.cumsum(dff * mf, dim=0)])
+    phi1 = c1[s_grid.long()]                                # (S',)
+
+    sfx = torch.flip(torch.cumsum(torch.flip(dff[:, None] * mfh.double(),
+                                             [0]), dim=0), [0])
+    sfx = torch.cat([sfx, sfx.new_zeros((1, h))], dim=0)
+    phi2 = sfx[s_grid.long()]                               # (S', H)
+    return s_grid, v_grid, phi1, phi2, dvbar, colsum
 
 
 def _phi3_chunk(ids, vals, nnz, dvbar, colsum, rho_a, s_grid, *, k: int):
@@ -133,32 +182,19 @@ def _phi3_chunk(ids, vals, nnz, dvbar, colsum, rho_a, s_grid, *, k: int):
     return (nt_h[:, :, None] * factor).sum(dim=0)
 
 
-def _est_tables(df: torch.Tensor, means_t: torch.Tensor, grid: EstGrid):
-    """Candidate grids, φ1/φ2, and the per-term tables φ̃3 consumes."""
-    d, k = means_t.shape
-    dev = means_t.device
-    s_min = int(grid.s_min_frac * d)
-    s_grid = torch.unique(
-        linspace_f32(s_min, d, grid.n_s).to(torch.int32)).to(dev)
-    v_grid = _v_candidates(means_t, s_min, grid)
-
-    mf = torch.empty((d,), dtype=torch.float64, device=dev)
-    for s, e in row_chunks(d, k):
-        mf[s:e] = (means_t[s:e] > 0).sum(dim=1)
-    dff = df.to(dev, torch.float64)
-
-    c1 = torch.cat([dff.new_zeros((1,)), torch.cumsum(dff * mf, dim=0)])
-    phi1 = c1[s_grid.long()]                                # (S',)
-
-    mfh = mfh_table(means_t, v_grid).double()               # (D, H)
-    sfx = torch.flip(torch.cumsum(torch.flip(dff[:, None] * mfh, [0]),
-                                  dim=0), [0])
-    sfx = torch.cat([sfx, sfx.new_zeros((1, len(v_grid)))], dim=0)
-    phi2 = sfx[s_grid.long()]                               # (S', H)
-
-    dvbar = delta_v_bar(means_t, v_grid)                    # (D, H)
-    colsum = mean_value_stats(means_t)                      # (D,)
-    return s_grid, v_grid, phi1, phi2, dvbar, colsum
+def _phi3(docs: SparseDocs, rho_self: torch.Tensor, tables, *, k: int,
+          grid: EstGrid) -> torch.Tensor:
+    """φ̃3 (S', H) float64 of ``docs``' rows, summed over slices of
+    ``grid.chunk`` rows from the first."""
+    s_grid, v_grid, _, _, dvbar, colsum = tables
+    phi3 = torch.zeros((len(s_grid), len(v_grid)), dtype=torch.float64,
+                       device=dvbar.device)
+    for start in range(0, docs.n_docs, grid.chunk):
+        end = min(start + grid.chunk, docs.n_docs)
+        phi3 += _phi3_chunk(docs.ids[start:end], docs.vals[start:end],
+                            docs.nnz[start:end], dvbar, colsum,
+                            rho_self[start:end], s_grid, k=k)
+    return phi3
 
 
 def _est_minimize(s_grid, v_grid, phi1, phi2, phi3):
@@ -179,15 +215,10 @@ def estimate_params(docs: SparseDocs, df: torch.Tensor,
     rho_self: (N,) ρ_{a(i)} against the current means — the update step's
     refreshed self-similarities, what Alg. 7 consumes.
     """
-    s_grid, v_grid, phi1, phi2, dvbar, colsum = _est_tables(df, means_t, grid)
-    phi3 = torch.zeros((len(s_grid), len(v_grid)), dtype=torch.float64,
-                       device=means_t.device)
-    for start in range(0, docs.n_docs, grid.chunk):
-        end = min(start + grid.chunk, docs.n_docs)
-        phi3 += _phi3_chunk(docs.ids[start:end], docs.vals[start:end],
-                            docs.nnz[start:end], dvbar, colsum,
-                            rho_self[start:end], s_grid, k=k)
-    return _est_minimize(s_grid, v_grid, phi1, phi2, phi3)
+    tables = _est_tables(df.to(means_t.device), *means_t.shape,
+                         lambda s, e: means_t[s:e], grid)
+    return _est_minimize(*tables[:4], _phi3(docs, rho_self, tables, k=k,
+                                            grid=grid))
 
 
 def estimate_params_store(store, df: torch.Tensor, means_t: torch.Tensor,
@@ -205,7 +236,9 @@ def estimate_params_store(store, df: torch.Tensor, means_t: torch.Tensor,
     """
     from repro_torch.sparse.store import ChunkPrefetcher
 
-    s_grid, v_grid, phi1, phi2, dvbar, colsum = _est_tables(df, means_t, grid)
+    s_grid, v_grid, phi1, phi2, dvbar, colsum = _est_tables(
+        df.to(means_t.device), *means_t.shape, lambda s, e: means_t[s:e],
+        grid)
     phi3 = torch.zeros((len(s_grid), len(v_grid)), dtype=torch.float64,
                        device=means_t.device)
     c = store.chunk_size

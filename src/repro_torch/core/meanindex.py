@@ -231,45 +231,6 @@ def normalized_means(lam_t: torch.Tensor,
     return lam_t
 
 
-def mean_value_stats(means_t: torch.Tensor) -> torch.Tensor:
-    """(D,) float64 Σ_k v_{s,k} (Eq. 32 inner sum), by row chunk."""
-    d, k = means_t.shape
-    out = torch.empty((d,), dtype=torch.float64, device=means_t.device)
-    for s, e in row_chunks(d, k):
-        out[s:e] = means_t[s:e].double().sum(dim=1)
-    return out
-
-
-def delta_v_bar(means_t: torch.Tensor, v_grid) -> torch.Tensor:
-    """Δv̄_{s,h} = (1/K) Σ_k relu(v_h − v_{s,k}) — Eq. (39), (D, H) float64.
-
-    Absent centroids (v = 0) count, matching the (K − mf_s)·v_h term.  The
-    relu is float32 (as in ``repro``); the mean is a float64 sum.
-    """
-    d, k = means_t.shape
-    v_grid = [float(v) for v in v_grid]
-    out = torch.empty((d, len(v_grid)), dtype=torch.float64,
-                      device=means_t.device)
-    for s, e in row_chunks(d, k):
-        blk = means_t[s:e]
-        for h, v_h in enumerate(v_grid):
-            out[s:e, h] = torch.clamp(v_h - blk, min=0.0).double().sum(dim=1)
-    return out / k
-
-
-def mfh_table(means_t: torch.Tensor, v_grid) -> torch.Tensor:
-    """(mfH)_{s,h} = #{k : v_{s,k} >= v_h} for every candidate — (D, H) int32."""
-    d, k = means_t.shape
-    v_grid = [float(v) for v in v_grid]
-    out = torch.empty((d, len(v_grid)), dtype=torch.int32,
-                      device=means_t.device)
-    for s, e in row_chunks(d, k):
-        blk = means_t[s:e]
-        for h, v_h in enumerate(v_grid):
-            out[s:e, h] = (blk >= v_h).sum(dim=1, dtype=torch.int32)
-    return out
-
-
 def region3_sketch(index: MeanIndex) -> torch.Tensor:
     """(S, K) per-group L2 norms of each centroid's Region-3 entries
     (rows s >= t_th with v < v_th) — the mean side of ``bounds-esicp``'s

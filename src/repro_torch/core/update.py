@@ -82,22 +82,27 @@ def max_center_drift(means_t_new: torch.Tensor,
     return _in_f64(torch.arccos, torch.clamp(dots, -1.0, 1.0)).amax()
 
 
-def group_drift(means_t_new: torch.Tensor,
-                means_t_old: torch.Tensor) -> torch.Tensor:
+def group_drift(means_t_new: torch.Tensor, means_t_old: torch.Tensor, *,
+                k: int | None = None, k0: int = 0) -> torch.Tensor:
     """(G,) float32 per-bound-group max angular drift arccos(<c_new, c_old>).
 
     The column dots are row-chunked (never a (D, K) product temporary) and
     summed in ``repro``'s order: near a dot of 1 the arccos turns one ulp
     into a drift of 3·10^-4, which the bounds modes would see.  A ragged
-    final group pads with zero drift.
+    final group pads with zero drift.  A mesh's centroid shard passes the
+    global ``k`` and its columns' first id ``k0``: the groups it holds no
+    column of get 0, for the max over the shards.
     """
     dots = column_dots(means_t_new, means_t_old)
     d = _in_f64(torch.arccos, torch.clamp(dots, -1.0, 1.0))
-    k = d.shape[0]
+    k_loc = d.shape[0]
+    k = k_loc if k is None else k
     gsz = ub_group_size(k)
     g = n_ub_groups(k)
-    d = torch.nn.functional.pad(d, (0, g * gsz - k))
-    return d.view(g, gsz).amax(dim=1)
+    lo, hi = k0 // gsz, -(-(k0 + k_loc) // gsz)
+    d = torch.nn.functional.pad(d, (k0 - lo * gsz, hi * gsz - k0 - k_loc))
+    return torch.nn.functional.pad(d.view(hi - lo, gsz).amax(dim=1),
+                                   (lo, g - hi))
 
 
 def drift_loosen(ub: torch.Tensor, delta_max: torch.Tensor) -> torch.Tensor:

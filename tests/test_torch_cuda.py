@@ -33,9 +33,11 @@ the plain segment_update on the card uses atomics (``index_add_``), so λ is
 compared bitwise against the CPU plain version instead.  Beside the
 kernels: the chunk prefetcher on the card (pinned ring of depth 1 and 3,
 side stream, memory and memmapped stores) and a four-chunk streaming fit
-against the resident fit, and the two-level fit, routed classify and
-routed serving against the CPU.  This file imports neither JAX nor
-``repro``."""
+against the resident fit, the two-level fit, routed classify and
+routed serving against the CPU, and the mesh runtime: a world of one on
+the card against ``lloyd_fit`` in its six modes (λ in spans, so the
+accumulating launch runs), and two spawned gloo ranks sharing the card
+at (1, 2) and (2, 1).  This file imports neither JAX nor ``repro``."""
 import numpy as np
 import pytest
 
@@ -1194,3 +1196,111 @@ def test_search_on_card_caches_and_reuses(dev, clean_tuner):
     _same_fit(got, want)
     again = lloyd_fit(docs, tune="search", tune_budget=budget, **kw)
     assert clean_tuner.searches == 1 and again.tuned == got.tuned
+
+
+# ---------------------------------------------------------------------------
+# The mesh runtime on the card.
+# ---------------------------------------------------------------------------
+
+MESH_ALGOS = ("esicp", "mivi", "icp", "bounds", "sketch", "bounds-esicp")
+MESH_K, MESH_ITER = 18, 6
+
+
+def _mesh_inputs():
+    from repro_torch.core.update import draw_seed_rows
+    from repro_torch.data import CorpusSpec, make_corpus
+
+    docs, df, _, _ = make_corpus(CorpusSpec(n_docs=1200, vocab=2048,
+                                            nt_mean=40, n_topics=8, seed=5),
+                                 device="cpu")
+    return docs, df, draw_seed_rows(1200, MESH_K, seed=5)
+
+
+def _mesh_lloyd(docs, df, rows, algo):
+    from repro_torch.core.lloyd import lloyd_fit
+
+    return lloyd_fit(docs, k=MESH_K, algo=algo, batch_size=256,
+                     max_iter=MESH_ITER, seed_rows=rows, df=df,
+                     device="cuda",
+                     params="auto" if algo == "esicp" else None)
+
+
+def _mesh_same_as_lloyd(got: dict, want, *, exact: bool = True):
+    assert np.array_equal(got["assign"], want.assign.cpu().numpy())
+    if exact:
+        for name, ref_t in (("rho", want.state.rho_self),
+                            ("means", want.state.index.means_t),
+                            ("ub", want.state.ub)):
+            assert np.array_equal(got[name], ref_t.cpu().numpy()), name
+        ints = ("iteration", "n_changed", "n_candidates", "t_th")
+        assert ([{f: h[f] for f in ints} for h in got["history"]]
+                == [{f: h[f] for f in ints} for h in want.history])
+    else:
+        np.testing.assert_allclose(got["means"],
+                                   want.state.index.means_t.cpu().numpy(),
+                                   rtol=0, atol=1e-6)
+
+
+def _mesh_card_rank(arrays, rows, shape, algo, span):
+    """A spawned rank on the card (gloo on CUDA tensors): the mesh fit,
+    gathered, as numpy, with the plain-version counts."""
+    from repro_torch.convert import docs_from_numpy
+    from repro_torch.distributed import kmeans
+    from repro_torch.launch.mesh import make_test_mesh
+
+    kmeans.LAMBDA_SPAN = span
+    mesh = make_test_mesh(shape, device="cuda")
+    docs = docs_from_numpy(*arrays, device="cpu")
+    ops.reset_counts()
+    state, hist, _, _ = kmeans.mesh_fit(docs, MESH_K, mesh, algo=algo,
+                                        max_iter=MESH_ITER, obj_chunk=256,
+                                        seed_rows=rows)
+    means, _, assign, rho, _, ub = kmeans.gather_state(mesh, state)
+    return {"assign": assign.cpu().numpy(), "rho": rho.cpu().numpy(),
+            "means": means.cpu().numpy(), "ub": ub.cpu().numpy(),
+            "history": hist, "plain": dict(ops.PLAIN),
+            "launches": dict(ops.LAUNCHES)}
+
+
+@pytest.mark.parametrize("algo", MESH_ALGOS)
+def test_mesh_world_of_one_on_card_equals_lloyd(dev, algo, monkeypatch):
+    """A world of one on the card equals lloyd_fit on the card bit for
+    bit, λ accumulated in spans of 300 rows (the init launch runs)."""
+    from repro_torch.distributed import kmeans
+    from repro_torch.launch.mesh import make_test_mesh
+
+    docs, df, rows = _mesh_inputs()
+    want = _mesh_lloyd(docs, df, rows, algo)
+    monkeypatch.setattr(kmeans, "LAMBDA_SPAN", 300)
+    ops.reset_counts()
+    state, hist, _, _ = kmeans.mesh_fit(
+        docs, MESH_K, make_test_mesh((1, 1), device="cuda"), algo=algo,
+        max_iter=MESH_ITER, obj_chunk=256, seed_rows=rows, df=df)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in ops.PLAIN.values()), ops.PLAIN
+    assert ops.LAUNCHES["segment_update_init"] > 0
+    _mesh_same_as_lloyd({"assign": state.assign[:1200].cpu().numpy(),
+                         "rho": state.rho_self[:1200].cpu().numpy(),
+                         "means": state.means_t.cpu().numpy(),
+                         "ub": state.ub[:1200].cpu().numpy(),
+                         "history": hist}, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)])
+def test_mesh_two_ranks_gloo_on_one_card(dev, shape, tmp_path):
+    """Two spawned ranks sharing the card through gloo: (1, 2) equals
+    lloyd_fit bit for bit, (2, 1) its assignments (λ summed over the two
+    object shards: means within 1e-6)."""
+    from repro_torch.launch.mesh import run_local_world
+
+    docs, df, rows = _mesh_inputs()
+    want = _mesh_lloyd(docs, df, rows, "esicp")
+    arrays = (docs.ids.numpy(), docs.vals.numpy(), docs.nnz.numpy(),
+              docs.dim, df.cpu().numpy())
+    outs = run_local_world(_mesh_card_rank, 2, backend="gloo",
+                           timeout=300, workdir=str(tmp_path),
+                           args=(arrays, rows.numpy(), shape, "esicp", 300))
+    for got in outs:
+        assert all(v == 0 for v in got["plain"].values()), got["plain"]
+        assert got["launches"]["esicp_gather"] > 0
+        _mesh_same_as_lloyd(got, want, exact=shape == (1, 2))

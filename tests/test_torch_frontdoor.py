@@ -27,6 +27,7 @@ from repro_torch.convert import docs_from_numpy, model_from_numpy  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.data import load_uci_bow  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.sparse import DocStore, l1_tail  # noqa: E402
 
 K = 16
@@ -205,8 +206,11 @@ def test_estimator_surface_and_unported_runtimes(fitted):
         km.predict(None)
     with pytest.raises(AttributeError, match="only available after fit"):
         km.labels_
-    with pytest.raises(NotImplementedError, match="item 2"):
-        SphericalKMeans(8, device="cpu", mesh=object()).fit(None)
+    # The mesh runtime is ported: the front door refuses what repro's
+    # refuses there (tests/test_torch_mesh.py fits on it).
+    with pytest.raises(ValueError, match="not available on the mesh"):
+        SphericalKMeans(8, algo="es", device="cpu",
+                        mesh=make_test_mesh((1, 1), device="cpu")).fit(None)
     # The autotuner is ported: on the CPU it is a no-op (no tiles to tune).
     tuned = SphericalKMeans(4, max_iter=3, device="cpu", tune="cached",
                             tune_budget=2).fit(head,
