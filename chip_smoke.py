@@ -174,23 +174,31 @@ Then the out-of-core plane, the resident corpus moved off the card:
              a time limit, and a failed rank fails the run.
 
 Then, with the clustering phases' memory freed, the LM serving path
-(gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``):
+(gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``, then the seven other
+attention-family archs of ``configs/registry.py``):
 
-12. lm kernels — flash_attention against its plain version at the
-             model's shapes (BH 8, S 4096, hd 256, window 512 and -1,
-             unit-normal inputs), at (3, 200, 136, 64) window 48 (rows
-             with no live key), max abs err ≤ 2e-5, and at (2, 1024, 256)
-             full causal with q, k scaled by 6 (scores ≈ 30) within 2e-5
-             of the plain version in float64; times from CUDA events
-             beside the plain version, ``scaled_dot_product_attention``
-             and two bounds (split-TF32 on the tensor cores, fp32 on the
-             CUDA cores); each instantiation's registers, spills (none
-             allowed), shared memory and blocks an SM;
-13. lm small — the gemma3 smoke config, parameters made on the CPU from
-             ``--seed`` and carried to the card, float32 compute on both:
-             prefill logits within 1e-4 and identical greedy tokens from
-             ``ServeLoop.generate`` (B 2, prompt 8, 16 new); on the card
-             the kernel launched and no plain version ran;
+12. lm kernels — flash_attention against its plain version at gemma3's
+             shapes (BH 8, S 4096, hd 256, window 512 and -1, unit-normal
+             inputs), at the attention family's full-width shapes
+             (``--lm-batch`` × 24 heads, S ``--lm-seq``, hd 64 full causal;
+             × 40, hd 128 full; × 48, hd 128 at windows 4096 and 1024), at
+             head dims the wrapper pads (12 and 96), at (3, 200, 136, 64)
+             window 48 (rows with no live key), max abs err ≤ 2e-5, and
+             at (2, 1024, 256) full causal with q, k scaled by 6 (scores
+             ≈ 30) within 2e-5 of the plain version in float64; times
+             from CUDA events beside the plain version,
+             ``scaled_dot_product_attention`` and two bounds (split-TF32
+             on the tensor cores, fp32 on the CUDA cores); each
+             instantiation's registers, spills (none allowed), shared
+             memory and blocks an SM;
+13. lm small — each attention-family smoke config (granite's and
+             mixtral's also with the int8 KV cache), parameters made on
+             the CPU from ``--seed`` and carried to the card, float32
+             compute on both: prefill logits within 1e-4 (a 5-position
+             frontend prefix for musicgen and chameleon) and identical
+             greedy tokens from ``ServeLoop.generate`` (B 2, prompt 8, 16
+             new); on the card one kernel launch per layer and no plain
+             version;
 14. lm main — gemma3-1b at full width, seeded weights on the card, bf16
              compute: ``make_prefill_fn`` on ``--lm-batch`` × ``--lm-seq``
              tokens (default 2 × 4096) with exactly one kernel launch per
@@ -200,7 +208,20 @@ Then, with the clustering phases' memory freed, the LM serving path
              top-1 included; ``ServeLoop(max_len=64).generate`` on B 4, a
              32-token prompt and 32 new tokens; torch.profiler's device
              time by kernel group, and the device's idle share, for one
-             prefill and for 7 decode steps.
+             prefill and for 7 decode steps;
+15. lm families — granite-moe-3b-a800m, gemma-2b and musicgen-large at
+             full width and depth, qwen2.5-32b, qwen1.5-32b and
+             chameleon-34b at full width and 4 layers, mixtral-8x22b at
+             full width and 2 layers (what one card holds), each built on
+             the card, run and freed before the next: phase 14's prefill
+             checks (256 and 1024 seeded frontend positions for musicgen
+             and chameleon) and a greedy decode (B 4, 32 + 16 new tokens,
+             32 for granite); for granite also the int8 KV cache (the
+             share of its greedy tokens equal to the bf16 cache's) and
+             torch.profiler's device time by group (flash_attention, the
+             MoE's dispatch/combine, its expert products, other matmuls,
+             casts and copies) with the idle share, for one prefill and
+             for 7 decode steps.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2329,11 +2350,65 @@ def log_flash_resources() -> None:
                 f"flash_kernel<{hd}> spills")
 
 
-def lm_kernel_phase(torch, seed: int):
-    """flash_attention against its plain version: the model's shapes and a
-    ragged shape with fully masked rows."""
+def flash_case(torch, q, k, v, window: int, tol: float, what: str) -> dict:
+    """flash_attention against its plain version on (q, k, v), timed beside
+    the plain version, ``scaled_dot_product_attention`` and both bounds."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import ops, ref
+
+    bh, s, hd = q.shape
+    got = ops.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention(q, k, v, window)
+    err = check_close(torch, f"flash_attention {what}", got, want, tol)
+    del want
+    if window < 0 or window >= s:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    else:
+        pos = torch.arange(s, device=q.device)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[:, None] - pos[None, :] < window))
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band)
+    lib_err = max_err(torch, lib(), got)
+    del got
+    bound, pairs = attention_bound(bh, s, hd, window, TF32_PASSES)
+    fp32_bound, _ = attention_bound(bh, s, hd, window)
+    r = dict(max_abs_err=err,
+             ms=time_ms(torch, lambda: ops.flash_attention(q, k, v,
+                                                           window=window)),
+             plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v,
+                                                                 window), reps=3),
+             library_ms=time_ms(torch, lib), bound=bound,
+             fp32_bound_ms=fp32_bound[0])
+    log(f"  {what}: BH {bh} S {s} hd {hd} window {window}: {pairs} live "
+        f"pairs; {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, sdpa "
+        f"{r['library_ms']:.3f} ms); bound {bound[0]:.4f} ms by "
+        f"{bound[1]} in {TF32_PASSES} TF32 passes on the tensor cores "
+        f"({bound[0] / r['ms']:.1%} of it), {fp32_bound[0]:.4f} ms in "
+        f"fp32 on the CUDA cores ({fp32_bound[0] / r['ms']:.1%}); max "
+        f"abs err {err:.3g} (tolerance {tol}); sdpa vs kernel {lib_err:.3g}")
+    return r
+
+
+def _shape_record(r: dict) -> dict:
+    return dict(ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                bound_ms=r["bound"][0], fp32_bound_ms=r["fp32_bound_ms"],
+                max_abs_err=r["max_abs_err"])
+
+
+# The attention family's full-width prefill shapes for phase 12: (name,
+# heads per row of the batch, hd, window).  mixtral's window 4096 equals
+# full causal at S 4096; at 1024 a band is live at hd 128.
+FAMILY_FLASH_SHAPES = (("granite-moe-3b-a800m", 24, 64, -1),
+                       ("qwen2.5-32b", 40, 128, -1),
+                       ("mixtral-8x22b", 48, 128, 4096),
+                       ("mixtral-8x22b window 1024", 48, 128, 1024))
+
+
+def lm_kernel_phase(torch, seed: int, batch: int, seq: int):
+    """flash_attention against its plain version: the model's shapes, the
+    attention family's full-width shapes, padded head dims and a ragged
+    shape with fully masked rows."""
     from repro_torch.kernels import ops, ref
 
     t0 = phase("lm kernels: flash_attention")
@@ -2344,43 +2419,9 @@ def lm_kernel_phase(torch, seed: int):
     bh, s, hd = 8, 4096, 256
     q, k, v = (torch.randn((bh, s, hd), generator=gen, device=dev)
                for _ in range(3))
-    by_window = {}
-    for window in (512, -1):
-        got = ops.flash_attention(q, k, v, window=window)
-        want = ref.flash_attention(q, k, v, window)
-        err = check_close(torch, f"flash_attention window {window}", got,
-                          want, tol)
-        del want
-        if window < 0:
-            lib = lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         is_causal=True)
-        else:
-            pos = torch.arange(s, device=dev)
-            band = ((pos[None, :] <= pos[:, None])
-                    & (pos[:, None] - pos[None, :] < window))
-            lib = lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         attn_mask=band)
-        lib_err = max_err(torch, lib(), got)
-        bound, pairs = attention_bound(bh, s, hd, window, TF32_PASSES)
-        fp32_bound, _ = attention_bound(bh, s, hd, window)
-        by_window[window] = dict(
-            max_abs_err=err,
-            ms=time_ms(torch, lambda: ops.flash_attention(q, k, v,
-                                                          window=window)),
-            plain_ms=time_ms(torch, lambda: ref.flash_attention(q, k, v,
-                                                                window), reps=3),
-            library_ms=time_ms(torch, lib), bound=bound,
-            fp32_bound_ms=fp32_bound[0])
-        r = by_window[window]
-        log(f"  BH {bh} S {s} hd {hd} window {window}: {pairs} live pairs; "
-            f"{r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, sdpa "
-            f"{r['library_ms']:.3f} ms); bound {bound[0]:.4f} ms by "
-            f"{bound[1]} in {TF32_PASSES} TF32 passes on the tensor cores "
-            f"({bound[0] / r['ms']:.1%} of it), {fp32_bound[0]:.4f} ms in "
-            f"fp32 on the CUDA cores ({fp32_bound[0] / r['ms']:.1%}); max "
-            f"abs err {err:.3g} (tolerance {tol}); sdpa vs kernel "
-            f"{lib_err:.3g}")
-    del q, k, v, got
+    by_window = {window: flash_case(torch, q, k, v, window, tol, "gemma3-1b")
+                 for window in (512, -1)}
+    del q, k, v
     # Scores of magnitude ≈ 30 (q, k scaled by 6): the online rescaling
     # under the split products, against the plain version in float64 (in
     # float32 it is itself 9e-5 off there; scripts/flash_probe.py).
@@ -2408,57 +2449,98 @@ def lm_kernel_phase(torch, seed: int):
             "flash_attention: the rows with no live key are not exactly 0")
     log(f"  (3, 200, 136, 64) window 48: max abs err {err:.3g} (tolerance "
         f"{tol}); rows 183-199 exactly 0")
+    errs = [err, err6]
+
+    # Head dims without an instantiation: zero-padded to the next one.
+    for hd_, heads in ((12, 4), (96, 8)):
+        q, k, v = (torch.randn((batch * heads, 1024, hd_), generator=gen,
+                               device=dev) for _ in range(3))
+        for window in (-1, 100):
+            ops.reset_counts()
+            got = ops.flash_attention(q, k, v, window=window)
+            require(ops.LAUNCHES["flash_attention"] == 1 and got.shape == q.shape,
+                    f"flash_attention at hd {hd_} did not launch once")
+            e = check_close(torch, f"flash_attention hd {hd_} window {window}",
+                            got, ref.flash_attention(q, k, v, window), tol)
+            errs.append(e)
+            log(f"  ({batch * heads}, 1024, {hd_}) window {window}, padded "
+                f"to hd {16 if hd_ == 12 else 128}: max abs err {e:.3g} "
+                f"(tolerance {tol})")
+    del q, k, v, got
+
+    by_shape = {}
+    for name, heads, hd_, window in FAMILY_FLASH_SHAPES:
+        q, k, v = (torch.randn((batch * heads, seq, hd_), generator=gen,
+                               device=dev) for _ in range(3))
+        r = flash_case(torch, q, k, v, window, tol, name)
+        del q, k, v
+        torch.cuda.empty_cache()
+        errs.append(r["max_abs_err"])
+        by_shape[f"{batch * heads}x{seq}x{hd_} window {window}"] = \
+            _shape_record(r)
     row = dict(by_window[-1])
-    row["max_abs_err"] = max(err, err6,
+    row["max_abs_err"] = max(*errs,
                              *(r["max_abs_err"] for r in by_window.values()))
-    row["extra"] = dict(fp32_bound_ms=row.pop("fp32_bound_ms"))
-    row["by_window"] = {str(w): dict(ms=r["ms"], plain_ms=r["plain_ms"],
-                                     library_ms=r["library_ms"],
-                                     bound_ms=r["bound"][0],
-                                     fp32_bound_ms=r["fp32_bound_ms"],
-                                     max_abs_err=r["max_abs_err"])
-                        for w, r in by_window.items()}
+    row["extra"] = dict(fp32_bound_ms=row.pop("fp32_bound_ms"),
+                        by_shape=by_shape)
+    row["by_window"] = {str(w): _shape_record(r) for w, r in by_window.items()}
     log(f"lm kernel checks passed in {time.perf_counter() - t0:.1f} s")
     return row
 
 
 def lm_small_phase(torch, seed: int):
-    """The gemma3 smoke config, float32 compute, on the card and on the
-    CPU from the same parameters: prefill logits and greedy tokens."""
-    from repro_torch.configs import gemma3_1b
+    """Every attention-family smoke config, float32 compute, on the card and
+    on the CPU from the same parameters: prefill logits (with a frontend
+    prefix for the audio and image archs) and greedy tokens; granite's and
+    mixtral's once more with the int8 KV cache."""
+    import dataclasses
+
+    from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import init_params, tree_to
     from repro_torch.serve.lm import ServeLoop, make_prefill_fn
 
-    t0 = phase("lm small cross-check (cuda vs cpu), gemma3 smoke config")
-    cfg = gemma3_1b.smoke_config()
-    gen = torch.Generator().manual_seed(seed)
-    params = {"cpu": init_params(cfg, gen, device="cpu")}
-    params["cuda"] = tree_to(params["cpu"], "cuda")
-    toks = torch.randint(0, cfg.vocab, (2, 37), generator=gen, dtype=torch.int32)
-    prompts = toks[:, :8]
+    t0 = phase("lm small cross-check (cuda vs cpu), the attention-family "
+               "smoke configs")
+    cases = [(arch, "bf16") for arch in registry.ARCHS]
+    cases += [("granite-moe-3b-a800m", "int8"), ("mixtral-8x22b", "int8")]
     f32 = torch.float32
-    lg, out = {}, {}
-    for dev in ("cuda", "cpu"):
-        ops.reset_counts()
-        lg[dev] = make_prefill_fn(cfg, compute_dtype=f32)(params[dev],
-                                                          toks.to(dev))
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launches = ops.LAUNCHES["flash_attention"]
-            plain = ops.PLAIN["flash_attention"]
-        out[dev] = ServeLoop(cfg, params[dev], compute_dtype=f32).generate(
-            prompts.to(dev), n_new=16)
-    err = check_close(torch, "lm small prefill logits cuda vs cpu",
-                      lg["cuda"].cpu(), lg["cpu"], 1e-4)
-    require(launches >= 1 and plain == 0,
-            f"lm small: flash_attention launches {launches}, plain {plain}")
-    require(torch.equal(out["cuda"].cpu(), out["cpu"]),
-            f"lm small: greedy tokens differ cuda vs cpu:\n{out['cuda']}\n"
-            f"{out['cpu']}")
-    log(f"  prefill logits (2, {cfg.vocab}) max abs err {err:.3g} "
-        f"(tolerance 1e-4); kernel launches {launches}, plain 0")
-    log(f"  greedy tokens identical: {out['cpu'][:, 8:].tolist()}")
+    for arch, kv in cases:
+        cfg = dataclasses.replace(registry.smoke_config(arch), kv_dtype=kv)
+        gen = torch.Generator().manual_seed(seed)
+        params = {"cpu": init_params(cfg, gen, device="cpu")}
+        params["cuda"] = tree_to(params["cpu"], "cuda")
+        # B·S a multiple of the MoE smoke configs' routing group (32).
+        s = 48 if cfg.n_experts else 37
+        toks = torch.randint(0, cfg.vocab, (2, s), generator=gen,
+                             dtype=torch.int32)
+        fe = (torch.randn((2, 5, cfg.d_model), generator=gen)
+              if cfg.modality != "text" else None)
+        prompts = toks[:, :8]
+        lg, out = {}, {}
+        for dev in ("cuda", "cpu"):
+            ops.reset_counts()
+            lg[dev] = make_prefill_fn(cfg, compute_dtype=f32)(
+                params[dev], toks.to(dev), None if fe is None else fe.to(dev))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = ops.LAUNCHES["flash_attention"]
+                plain = sum(ops.PLAIN.values())
+            out[dev] = ServeLoop(cfg, params[dev], compute_dtype=f32).generate(
+                prompts.to(dev), n_new=16)
+        what = f"{cfg.name} kv {kv}"
+        err = check_close(torch, f"lm small prefill logits cuda vs cpu, {what}",
+                          lg["cuda"].cpu(), lg["cpu"], 1e-4)
+        require(launches == cfg.n_layers and plain == 0,
+                f"lm small {what}: flash_attention launches {launches}, "
+                f"plain calls {plain}")
+        require(torch.equal(out["cuda"].cpu(), out["cpu"]),
+                f"lm small {what}: greedy tokens differ cuda vs cpu:\n"
+                f"{out['cuda']}\n{out['cpu']}")
+        log(f"  {what} (hd {cfg.hd}{', frontend 5' if fe is not None else ''}"
+            f"): prefill logits (2, {cfg.vocab}) max abs err {err:.3g} "
+            f"(tolerance 1e-4); kernel launches {launches}, plain 0; greedy "
+            f"tokens identical: {out['cpu'][0, 8:].tolist()}")
     log(f"lm small cross-check passed in {time.perf_counter() - t0:.1f} s")
 
 
@@ -2521,6 +2603,45 @@ class plain_attention:
         self.ops.flash_attention = self.kernel
 
 
+def prefill_parity(torch, cfg, prefill, params, tokens, fe, logits) -> int:
+    """The same prefill with the plain attention against the kernel's
+    ``logits``, within twice the bf16 path's own rounding error (bf16 vs
+    float32 compute, kernel path), top-1 included.  Returns the kernel
+    launches of the float32 prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.lm import make_prefill_fn
+
+    batch = tokens.shape[0]
+    with plain_attention():
+        ops.reset_counts()
+        plain_logits = prefill(params, tokens, fe)
+        require(ops.LAUNCHES["flash_attention"] == 0,
+                "the parity prefill launched the kernel")
+    ops.reset_counts()
+    ref32 = make_prefill_fn(cfg, compute_dtype=torch.float32)(params, tokens,
+                                                              fe)
+    launches = ops.LAUNCHES["flash_attention"]
+    a, b = logits.float(), plain_logits.float()
+    diff = float((a - b).abs().max())
+    noise = float((a - ref32).abs().max())
+    tol = 2 * noise
+    log(f"  parity: kernel vs plain attention (bf16 path) max abs logit diff "
+        f"{diff:.4g}; bf16 vs float32 compute (kernel) {noise:.4g}; "
+        f"tolerance 2 × that = {tol:.4g}; logits max |x| "
+        f"{float(a.abs().max()):.4g}")
+    require(diff <= tol, f"kernel vs plain prefill logits differ by {diff} "
+            f"> {tol}")
+    top_a, top_b = a.argmax(-1), b.argmax(-1)
+    for r in range(batch):
+        i, j = int(top_a[r]), int(top_b[r])
+        if i != j:
+            gap = max(abs(float(a[r, i] - a[r, j])), abs(float(b[r, i] - b[r, j])))
+            log(f"  row {r}: top-1 {i} vs {j}, logit gap {gap:.4g}")
+            require(gap <= tol, f"row {r}: top-1 differs by a gap {gap} > {tol}")
+    log(f"  top-1 equal in {int((top_a == top_b).sum())} of {batch} rows")
+    return launches
+
+
 def lm_main_phase(torch, seed: int, batch: int, seq: int):
     """gemma3-1b at full width: prefill (the kernel's path) and decode."""
     from repro_torch.configs import gemma3_1b
@@ -2576,34 +2697,9 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
                   *device_breakdown(torch, lambda: prefill(params, tokens)))
     run_launches = ops.LAUNCHES["flash_attention"]
 
-    # Parity: the same prefill with the plain attention, and the bf16
-    # path's own rounding error (float32 compute, kernel path).
-    with plain_attention():
-        ops.reset_counts()
-        plain_logits = prefill(params, tokens)
-        require(ops.LAUNCHES["flash_attention"] == 0,
-                "the parity prefill launched the kernel")
-    ref32 = make_prefill_fn(cfg, compute_dtype=torch.float32)(params, tokens)
-    run_launches += ops.LAUNCHES["flash_attention"]
-    a, b = logits.float(), plain_logits.float()
-    diff = float((a - b).abs().max())
-    noise = float((a - ref32).abs().max())
-    tol = 2 * noise
-    log(f"  parity: kernel vs plain attention (bf16 path) max abs logit diff "
-        f"{diff:.4g}; bf16 vs float32 compute (kernel) {noise:.4g}; "
-        f"tolerance 2 × that = {tol:.4g}; logits max |x| "
-        f"{float(a.abs().max()):.4g}")
-    require(diff <= tol, f"kernel vs plain prefill logits differ by {diff} "
-            f"> {tol}")
-    top_a, top_b = a.argmax(-1), b.argmax(-1)
-    for r in range(batch):
-        i, j = int(top_a[r]), int(top_b[r])
-        if i != j:
-            gap = max(abs(float(a[r, i] - a[r, j])), abs(float(b[r, i] - b[r, j])))
-            log(f"  row {r}: top-1 {i} vs {j}, logit gap {gap:.4g}")
-            require(gap <= tol, f"row {r}: top-1 differs by a gap {gap} > {tol}")
-    log(f"  top-1 equal in {int((top_a == top_b).sum())} of {batch} rows")
-    del plain_logits, ref32, a, b, logits
+    run_launches += prefill_parity(torch, cfg, prefill, params, tokens,
+                                   None, logits)
+    del logits
 
     # Decode: teacher-forced prompt then greedy tokens, through the cache.
     loop = ServeLoop(cfg, params, max_len=64)
@@ -2633,6 +2729,250 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
         f" kernel prefills: {run_launches}")
     log(f"lm main path done in {time.perf_counter() - t0:.1f} s")
     return launches["flash_attention"], run_launches
+
+
+# The attention family at full width on the card (after gemma3-1b, phase
+# 14): (arch, layers kept, None for the full depth; new tokens of the
+# greedy run).  The depth of the archs that do not fit is cut to what one
+# 80 GB card holds beside the parity prefills; widths are never cut.
+LM_FAMILY = (("granite-moe-3b-a800m", None, 32),
+             ("gemma-2b", None, 16),
+             ("musicgen-large", None, 16),
+             ("qwen2.5-32b", 4, 16),
+             ("qwen1.5-32b", 4, 16),
+             ("chameleon-34b", 4, 16),
+             ("mixtral-8x22b", 2, 16))
+
+# The MoE's three steps (models/layers.py), labelled for the profiler.
+MOE_SPANS = {"_moe_dispatch": "moe dispatch/combine",
+             "_moe_combine": "moe dispatch/combine",
+             "_moe_experts": "moe experts"}
+MATMUL_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+              "aten::matmul", "aten::linear", "aten::einsum"}
+COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::to", "aten::clone",
+            "aten::contiguous"}
+
+
+class moe_spans:
+    """Wraps the MoE's three steps in ``record_function`` ranges, for the
+    profiled runs only."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers as L
+
+        self.L, self.saved = L, {n: getattr(L, n) for n in MOE_SPANS}
+        for n, f in self.saved.items():
+            def wrapped(*a, _f=f, _n=n):
+                with torch.profiler.record_function(_n):
+                    return _f(*a)
+            setattr(L, n, wrapped)
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.L, n, f)
+
+
+def device_groups(torch, fn):
+    """(wall s, {group: device ms}, kernels, top) of one call of ``fn``
+    under torch.profiler, each kernel grouped by the op that launched it:
+    the attention kernel; the MoE's routing, dispatch and combine; its
+    expert products (the float32 bmm's); other matmuls (projections, the
+    MLP, the head, the decode attention's einsums); casts and copies (the
+    fp32 -> bf16 weight casts, mostly); the rest.  A kernel no op claims
+    counts under "unattributed"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with moe_spans(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    groups = dict.fromkeys(("flash_attention", "moe dispatch/combine",
+                            "moe expert products", "matmuls",
+                            "casts and copies", "other"), 0.0)
+    by_name: dict = {}
+    device_ms, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name in MOE_SPANS:      # a range's own span on the device
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            device_ms += ms
+            n += 1
+            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+            # launched through ctypes, so no op owns it
+            if "flash_kernel" in e.name.lower():
+                groups["flash_attention"] += ms
+            continue
+        span = e
+        while span is not None and span.name not in MOE_SPANS:
+            span = span.cpu_parent
+        span = None if span is None else MOE_SPANS[span.name]
+        for kern in getattr(e, "kernels", ()):
+            ms = kern.duration / 1e3
+            if "flash_kernel" in kern.name.lower():
+                continue
+            if span == "moe experts" and e.name in MATMUL_OPS:
+                key = "moe expert products"
+            elif span == "moe dispatch/combine":
+                key = span
+            elif e.name in MATMUL_OPS:
+                key = "matmuls"
+            elif e.name in COPY_OPS:
+                key = "casts and copies"
+            else:
+                key = "other"
+            groups[key] += ms
+    groups["unattributed"] = max(0.0, device_ms - sum(groups.values()))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return wall, groups, n, top
+
+
+def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
+                   batch: int, seq: int) -> tuple[int, int]:
+    """One attention-family arch at full width on the card, seeded weights,
+    bf16 compute: the prefill (one kernel launch per layer, no plain call,
+    finite logits, plain-attention parity) and a greedy decode; for
+    granite-moe-3b-a800m also the int8 cache and the profiles.  Returns
+    (the first prefill's kernel launches, every launch of the arch)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.shapes import FRONTEND_LEN
+    from repro_torch.models.config import Segment
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.lm import ServeLoop, make_prefill_fn
+
+    t0 = time.perf_counter()
+    cfg = registry.get_config(arch)
+    full_layers = cfg.n_layers
+    if layers is not None:
+        (seg,) = cfg.segments
+        cfg = dataclasses.replace(cfg, segments=(
+            Segment(reps=layers // len(seg.layers), layers=seg.layers),))
+    main = arch == "granite-moe-3b-a800m"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in params.values() if torch.is_tensor(t))
+    n_params += sum(t.numel() for lp in params["layers"] for t in lp.values())
+    require(n_params == cfg.n_params(),
+            f"{arch}: {n_params} parameters, the config says {cfg.n_params()}")
+    s_fe = FRONTEND_LEN.get(arch, 0)
+    log(f"  {arch}: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+        f"of {cfg.hd}, {cfg.n_layers} of {full_layers} layers"
+        f"{f', {cfg.n_experts} experts top {cfg.top_k}' if cfg.n_experts else ''}"
+        f"{f', window {cfg.segments[0].layers[0].window}' if cfg.segments[0].layers[0].window > 0 else ''}"
+        f"{f', frontend {s_fe} positions' if s_fe else ''}: {n_params:,} "
+        f"parameters ({n_params * 4 / 1e9:.2f} GB fp32), "
+        f"{cfg.n_active_params():,} active")
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    fe = (torch.randn((batch, s_fe, cfg.d_model), generator=gen, device=dev)
+          if s_fe else None)
+    prefill = make_prefill_fn(cfg)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    t = time.perf_counter()
+    logits = prefill(params, tokens, fe)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
+    require(launches["flash_attention"] == cfg.n_layers,
+            f"{arch}: prefill launched flash_attention "
+            f"{launches['flash_attention']} times, not once per layer")
+    require(all(n == 0 for n in plain.values()),
+            f"{arch}: a plain version ran on the prefill: {plain}")
+    require(logits.shape == (batch, cfg.vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{arch}: prefill logits malformed: {tuple(logits.shape)}")
+    times = []
+    for _ in range(3 if main else 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill(params, tokens, fe)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    pre_s = statistics.median(times)
+    log(f"  prefill B {batch} S {seq}: {pre_s * 1e3:.1f} ms "
+        f"{'median of 3' if main else 'warm'} (first call "
+        f"{cold_s * 1e3:.1f} ms), {batch * seq / pre_s:.0f} tokens/s, "
+        f"{launches['flash_attention']} flash_attention launches, no plain "
+        f"call; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if main:
+        log_breakdown("prefill under the profiler", *device_groups(
+            torch, lambda: prefill(params, tokens, fe)))
+    run_launches = ops.LAUNCHES["flash_attention"]
+    run_launches += prefill_parity(torch, cfg, prefill, params, tokens, fe,
+                                   logits)
+    del logits
+    torch.cuda.empty_cache()
+
+    loop = ServeLoop(cfg, params, max_len=64)
+    prompts = torch.randint(0, cfg.vocab, (4, 32), generator=gen, device=dev,
+                            dtype=torch.int32)
+    steps = 32 + n_new - 1
+    runs = []
+    for _ in range(2 if main else 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = loop.generate(prompts, n_new=n_new)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t)
+    require(out.shape == (4, 32 + n_new) and torch.equal(out[:, :32], prompts)
+            and bool(((out >= 0) & (out < cfg.vocab)).all()),
+            f"{arch}: generate output malformed")
+    log(f"  decode: B 4, {steps} steps: {runs[-1] / steps * 1e3:.2f} ms per "
+        f"step{f' (first run {runs[0] / steps * 1e3:.2f} ms)' if main else ''}"
+        f", {4 * steps / runs[-1]:.0f} tokens/s; new tokens of row 0: "
+        f"{out[0, 32:].tolist()}")
+    if main:
+        loop8 = ServeLoop(dataclasses.replace(cfg, kv_dtype="int8"), params,
+                          max_len=64)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out8 = loop8.generate(prompts, n_new=n_new)
+        torch.cuda.synchronize()
+        t8 = time.perf_counter() - t
+        require(out8.shape == out.shape and torch.equal(out8[:, :32], prompts),
+                f"{arch}: int8 generate output malformed")
+        same = float((out8[:, 32:] == out[:, 32:]).float().mean())
+        log(f"  int8 KV cache: {t8 / steps * 1e3:.2f} ms per step; "
+            f"{same:.1%} of the {4 * n_new} greedy tokens equal the bf16 "
+            f"cache's; new tokens of row 0: {out8[0, 32:].tolist()}")
+        log_breakdown("7 decode steps under the profiler", *device_groups(
+            torch, lambda: loop.generate(prompts[:, :4], n_new=4)))
+        del loop8
+    log(f"  {arch} done in {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, loop
+    torch.cuda.empty_cache()
+    return launches["flash_attention"], run_launches
+
+
+def lm_family_phase(torch, seed: int, batch: int, seq: int) -> tuple[int, int]:
+    """The seven other attention-family archs at full width, one after the
+    other, each freed before the next.  Returns (the first prefills'
+    kernel launches, every launch of the phase)."""
+    t0 = phase(f"lm families: {len(LM_FAMILY)} archs at full width, prefill "
+               f"B {batch} S {seq} + decode")
+    main = total = 0
+    for arch, layers, n_new in LM_FAMILY:
+        got, run = lm_family_arch(torch, arch, layers, n_new, seed, batch, seq)
+        main += got
+        total += run
+    log(f"lm families done in {time.perf_counter() - t0:.1f} s; "
+        f"flash_attention launches: {main} on the first prefills, {total} "
+        f"in all")
+    return main, total
 
 
 # ---------------------------------------------------------------------------
@@ -2949,9 +3289,9 @@ def main() -> int:
                          "fits")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-batch", type=int, default=2,
-                    help="batch of the gemma3-1b prefill")
+                    help="batch of the LM prefills")
     ap.add_argument("--lm-seq", type=int, default=4096,
-                    help="tokens per row of the gemma3-1b prefill")
+                    help="tokens per row of the LM prefills")
     args = ap.parse_args()
 
     import torch
@@ -3079,12 +3419,16 @@ def main() -> int:
     del docs, df, ref5
     torch.cuda.empty_cache()
 
-    rows["flash_attention"] = lm_kernel_phase(torch, args.seed)
+    rows["flash_attention"] = lm_kernel_phase(torch, args.seed, args.lm_batch,
+                                              args.lm_seq)
     lm_small_phase(torch, args.seed)
     launches["flash_attention"], run_launches = lm_main_phase(
         torch, args.seed, args.lm_batch, args.lm_seq)
-    rows["flash_attention"]["extra"]["launches_in_run"] = run_launches
-    paths["flash_attention"] = ["gemma3-1b prefill"]
+    got, run = lm_family_phase(torch, args.seed, args.lm_batch, args.lm_seq)
+    launches["flash_attention"] += got
+    rows["flash_attention"]["extra"]["launches_in_run"] = run_launches + run
+    paths["flash_attention"] = ["gemma3-1b prefill"] + [
+        f"{arch} prefill" for arch, _, _ in LM_FAMILY]
 
     kernels = []
     for name in SOURCES:

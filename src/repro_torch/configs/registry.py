@@ -1,9 +1,10 @@
 """Architecture registry of the port: the archs it can run.
 
-``repro.configs.registry.ARCHS`` lists ten; the port runs the
-dense-attention serving path, so far for gemma3-1b only.  Asking for one
-of the others raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 3
-lists what is left to port).
+``repro.configs.registry.ARCHS`` lists ten; the port runs the serving
+path of the eight attention-family ones (dense, MoE, and the audio and
+image stub frontends).  Asking for xlstm-125m or zamba2-2.7b, whose
+mamba2/mlstm/slstm/shared_attn layer kinds are not ported, raises
+``NotImplementedError`` (ROADMAP.md Queue 1 item 3 lists what is left).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ REPRO_ARCHS = [
     "musicgen-large",
     "chameleon-34b",
 ]
-ARCHS = ["gemma3-1b"]
+ARCHS = [a for a in REPRO_ARCHS if a not in ("xlstm-125m", "zamba2-2.7b")]
 
 
 def _module(name: str):
@@ -42,3 +43,7 @@ def get_config(name: str):
 
 def smoke_config(name: str):
     return _module(name).smoke_config()
+
+
+def list_archs() -> list[str]:
+    return list(ARCHS)

@@ -82,12 +82,15 @@ def lm_params_from_numpy(tree, cfg, *, device="cuda") -> dict:
     """The nested dict of numpy leaves of a ``repro`` LM parameter tree
     (``jax.tree_util.tree_map(np.asarray, params)``), whose segment leaves
     are stacked on a leading ``reps`` axis, -> the port's parameters: one
-    dict per layer in execution order (see ``models/transformer.py``)."""
+    dict per layer in execution order (see ``models/transformer.py``).  A
+    ``moe`` layer's router (reps, D, E) and expert stacks (reps, E, ., .)
+    unstack like the other leaves; ``frontend_proj`` is carried as it is."""
     from repro_torch.models.transformer import _check_kind
 
     dev = resolve_device(device)
     out = {name: _t(tree[name], np.float32, dev)
-           for name in ("embed", "final_norm", "lm_head") if name in tree}
+           for name in ("embed", "final_norm", "lm_head", "frontend_proj")
+           if name in tree}
     layers = []
     for si, seg in enumerate(cfg.segments):
         for r in range(seg.reps):

@@ -46,12 +46,13 @@ no bank conflict.
 """
 from __future__ import annotations
 
-import math
-
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention as plain  # noqa: F401
 
-# Head dims the kernel is instantiated for.
+# Head dims the kernel is instantiated for.  ``kernels/ops`` runs any
+# other head dim up to 256 on the next of them, q, k and v padded with
+# zero columns: they add exact zeros to every score and give zero output
+# columns, which it slices off.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _SIG = {
@@ -80,13 +81,24 @@ def resources(hd: int) -> tuple[int, int]:
     return smem.value, blocks.value
 
 
-def launch(q, k, v, window: int, sk_real: int, out) -> None:
+def padded_head_dim(hd: int) -> int:
+    """The instantiation a head dim runs on: the least of HEAD_DIMS at or
+    above it.  Raises above the largest."""
+    for h in HEAD_DIMS:
+        if hd <= h:
+            return h
+    raise ValueError(f"head dim {hd} above the kernel's largest, "
+                     f"{HEAD_DIMS[-1]}")
+
+
+def launch(q, k, v, window: int, sk_real: int, out, scale: float) -> None:
     """flash_attention on the current stream; operands are checked by
-    kernels/ops."""
+    kernels/ops.  ``scale`` multiplies the scores: 1/sqrt(hd) of the
+    unpadded head dim when the operands carry zero columns."""
     lib = library()
     bh, sq, hd = q.shape
     rc = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-        k.shape[1], hd, sk_real, window, 1.0 / math.sqrt(hd),
+        k.shape[1], hd, sk_real, window, float(scale),
         _build.stream_ptr(q.device))
     _build.check(lib, "flash_attention", rc)

@@ -20,6 +20,8 @@ the plain versions have no tiles.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import ref
@@ -389,9 +391,9 @@ def sketch_sim(sk_docs, sketch_t):
 def flash_attention(q, k, v, *, window: int = -1, sk_real: int | None = None):
     """(BH, Sq, hd) x (BH, Sk, hd) -> (BH, Sq, hd) float32 banded-causal
     attention (window < 0: full causal; keys at or past ``sk_real``, default
-    Sk, are masked; a row with no live key gives 0)."""
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
-
+    Sk, are masked; a row with no live key gives 0).  On the card any hd up
+    to 256: one the kernel has no instantiation for runs on the next one,
+    q, k and v zero-padded to it and the output sliced back."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _need(t, name, torch.float32, 3)
     bh, sq, hd = q.shape
@@ -409,13 +411,14 @@ def flash_attention(q, k, v, *, window: int = -1, sk_real: int | None = None):
     from repro_torch.kernels import flash_attention as kern
 
     _contiguous(("q", q), ("k", k), ("v", v))
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not among the kernel's {HEAD_DIMS}")
+    hp = kern.padded_head_dim(hd)
+    if hp != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, hp - hd)) for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned for the kernel")
     if not (bh and sq and sk):
         return torch.zeros((bh, sq, hd), dtype=torch.float32, device=q.device)
-    out = torch.empty((bh, sq, hd), dtype=torch.float32, device=q.device)
-    kern.launch(q, k, v, window, sk_real, out)
+    out = torch.empty((bh, sq, hp), dtype=torch.float32, device=q.device)
+    kern.launch(q, k, v, window, sk_real, out, 1.0 / math.sqrt(hd))
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out if hp == hd else out[..., :hd].contiguous()

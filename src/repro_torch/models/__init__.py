@@ -1,1 +1,1 @@
-"""The LM template's dense-attention family: config, layers, transformer."""
+"""The LM template's attention family: config, layers, transformer."""

@@ -6,9 +6,9 @@ one segment of six specs).  ``repro`` runs a segment as one ``lax.scan``;
 the port runs its layers in the same order as a Python loop
 (:mod:`repro_torch.models.transformer`).
 
-Layer kinds: 'attn' (attention + dense MLP), 'moe', 'mamba2', 'mlstm',
-'slstm', 'shared_attn'.  The port runs 'attn' only; the others raise in
-the transformer.
+Layer kinds: 'attn' (attention + dense MLP), 'moe' (attention + MoE MLP),
+'mamba2', 'mlstm', 'slstm', 'shared_attn'.  The port runs 'attn' and
+'moe'; the others raise in the transformer.
 """
 from __future__ import annotations
 
@@ -60,7 +60,8 @@ class ModelConfig:
     tie_embeddings: bool = True
     modality: str = "text"
     max_position: int = 131_072
-    kv_dtype: str = "bf16"       # | "int8" (not ported)
+    kv_dtype: str = "bf16"       # KV cache in the compute dtype | "int8"
+                                 # (per-(token, kv-head) max-abs codes + scales)
 
     @property
     def hd(self) -> int:
@@ -80,6 +81,18 @@ class ModelConfig:
         from repro_torch.models.transformer import tree_shapes
 
         return int(sum(math.prod(s) for s in _leaves(tree_shapes(self))))
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.n_params()
+        dense_frac = self.top_k / self.n_experts
+        d = self.d_model
+        n_mlp_mats = 3 if self.mlp in ("swiglu", "geglu") else 2
+        moe_total = sum(seg.reps * sum(1 for sp in seg.layers if sp.kind == "moe")
+                        for seg in self.segments)
+        inactive = moe_total * (1 - dense_frac) * self.n_experts * n_mlp_mats * d * self.d_ff
+        return int(self.n_params() - inactive)
 
 
 def _leaves(tree):

@@ -1,10 +1,12 @@
-"""Model assembly for the dense-attention family: parameters, the prefill
+"""Model assembly for the attention family: parameters, the prefill
 forward, logits, KV caches and one decode step.  The port's counterpart of
-``repro.models.transformer`` for the ``attn`` layer kind; the other kinds
-raise ``NotImplementedError``.
+``repro.models.transformer`` for the ``attn`` and ``moe`` layer kinds; the
+other kinds (mamba2, mlstm, slstm, shared_attn) raise
+``NotImplementedError``.
 
 Parameters are a dict of float32 tensors: ``embed`` (padded vocab, D),
-``final_norm`` (D,), ``lm_head`` when the embeddings are not tied, and
+``final_norm`` (D,), ``lm_head`` when the embeddings are not tied,
+``frontend_proj`` (D, D) for the audio and image stub frontends, and
 ``layers``, one dict per layer in execution order (segment by segment,
 repetition by repetition, spec by spec — the order of ``repro``'s scans).
 ``repro`` stacks a segment's layers on a leading ``reps`` axis;
@@ -26,7 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import LayerSpec, ModelConfig
 
 PDTYPE = torch.float32   # parameter dtype
-ATTN_KINDS = ("attn",)
+ATTN_KINDS = ("attn", "moe")
 _ZERO_INIT = ("ln1", "ln2", "final_norm", "bq", "bk", "bv")
 
 
@@ -52,7 +54,11 @@ def layer_shapes(cfg: ModelConfig, kind: str) -> dict:
            "wo": (hq * hd, d)}
     if cfg.qkv_bias:
         shp.update({"bq": (hq * hd,), "bk": (hkv * hd,), "bv": (hkv * hd,)})
-    if cfg.mlp in ("swiglu", "geglu"):
+    if kind == "moe":
+        e = cfg.n_experts
+        shp.update({"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
+                    "w_down": (e, f, d)})
+    elif cfg.mlp in ("swiglu", "geglu"):
         shp.update({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
     else:
         shp.update({"w_up": (d, f), "w_down": (f, d)})
@@ -60,12 +66,12 @@ def layer_shapes(cfg: ModelConfig, kind: str) -> dict:
 
 
 def tree_shapes(cfg: ModelConfig) -> dict:
-    if cfg.modality != "text":
-        raise NotImplementedError(f"modality {cfg.modality!r} is not ported")
     tree: dict = {"embed": (cfg.padded_vocab, cfg.d_model),
                   "final_norm": (cfg.d_model,)}
     if not cfg.tie_embeddings:
         tree["lm_head"] = (cfg.padded_vocab, cfg.d_model)
+    if cfg.modality != "text":
+        tree["frontend_proj"] = (cfg.d_model, cfg.d_model)   # stub projection
     tree["layers"] = [layer_shapes(cfg, spec.kind) for spec in layer_specs(cfg)]
     return tree
 
@@ -105,16 +111,31 @@ def _cd(params, compute_dtype):
     return L.compute_dtype(params["embed"].device, compute_dtype)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, compute_dtype=None):
+def _mlp(x, p, spec: LayerSpec, cfg: ModelConfig, cd):
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if spec.kind == "moe":
+        return L.moe_mlp(h, p, cfg, cd)
+    return L.dense_mlp(h, p, cfg, cd)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
+            compute_dtype=None):
     """tokens: (B, S) integer -> final hidden states (B, S, D) in the
-    compute dtype."""
+    compute dtype.
+
+    frontend_embeds: (B, S_fe, D), the stub frontend's prefix (audio
+    frames, image patches): ``frontend_embeds @ frontend_proj`` replaces
+    the first S_fe token embeddings (early fusion)."""
     cd = _cd(params, compute_dtype)
     x = params["embed"][tokens.long()].to(cd) * math.sqrt(cfg.d_model)
+    if frontend_embeds is not None:
+        fe = frontend_embeds.to(cd) @ params["frontend_proj"].to(cd)
+        x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
     eps = cfg.norm_eps
     for spec, p in zip(layer_specs(cfg), params["layers"]):
         _check_kind(spec)
         x = x + L.attention(L.rms_norm(x, p["ln1"], eps), p, cfg, spec.window, cd)
-        x = x + L.dense_mlp(L.rms_norm(x, p["ln2"], eps), p, cfg, cd)
+        x = x + _mlp(x, p, spec, cfg, cd)
     return L.rms_norm(x, params["final_norm"], eps)
 
 
@@ -133,18 +154,26 @@ def cache_len(spec: LayerSpec, s_max: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device="cuda",
                compute_dtype=None) -> list[dict]:
-    """One {"k", "v"} pair of zeroed (B, L_c, Hkv, hd) caches per layer, in
-    the compute dtype."""
-    if cfg.kv_dtype != "bf16":
-        raise NotImplementedError(f"kv_dtype {cfg.kv_dtype!r} is not ported")
+    """One {"k", "v"} pair of zeroed (B, L_c, Hkv, hd) caches per layer:
+    in the compute dtype, or with ``cfg.kv_dtype == "int8"`` each a dict
+    of int8 codes "q" and float32 scales "s" (B, L_c, Hkv, 1)."""
+    if cfg.kv_dtype not in ("bf16", "int8"):
+        raise ValueError(f"unknown kv_dtype {cfg.kv_dtype!r}")
     dev = resolve_device(device)
     cd = L.compute_dtype(dev, compute_dtype)
+
+    def one(shp):
+        if cfg.kv_dtype == "int8":
+            return {"q": torch.zeros(shp, dtype=torch.int8, device=dev),
+                    "s": torch.zeros(shp[:-1] + (1,), dtype=torch.float32,
+                                     device=dev)}
+        return torch.zeros(shp, dtype=cd, device=dev)
+
     out = []
     for spec in layer_specs(cfg):
         _check_kind(spec)
         shp = (batch, cache_len(spec, s_max), cfg.n_kv_heads, cfg.hd)
-        out.append({"k": torch.zeros(shp, dtype=cd, device=dev),
-                    "v": torch.zeros(shp, dtype=cd, device=dev)})
+        out.append({"k": one(shp), "v": one(shp)})
     return out
 
 
@@ -162,6 +191,6 @@ def decode_forward(params, cache, token, pos: int, cfg: ModelConfig, *,
             L.rms_norm(x, p["ln1"], eps), p, cfg, spec.window, c["k"], c["v"],
             pos, cd)
         x = x + h
-        x = x + L.dense_mlp(L.rms_norm(x, p["ln2"], eps), p, cfg, cd)
+        x = x + _mlp(x, p, spec, cfg, cd)
     h = L.rms_norm(x, params["final_norm"], eps)
     return logits(params, h, cfg, compute_dtype=cd)[..., :cfg.vocab], cache

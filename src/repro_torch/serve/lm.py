@@ -2,7 +2,8 @@
 The port's counterpart of ``repro.serve.lm``, in eager PyTorch (no jit;
 CUDA graphs are later work).
 
-  prefill_fn(params, tokens (B, S))              -> next-token logits (B, V)
+  prefill_fn(params, tokens (B, S)[, frontend_embeds (B, S_fe, D)])
+                                                 -> next-token logits (B, V)
   decode_fn(params, cache, token (B, 1), pos)    -> (logits (B, 1, V), cache)
 
 The prefill runs every attention layer through the flash-attention kernel
@@ -19,8 +20,9 @@ from repro_torch.models.transformer import (decode_forward, forward,
 
 
 def make_prefill_fn(cfg: ModelConfig, *, compute_dtype=None):
-    def prefill(params, tokens):
-        h = forward(params, tokens, cfg, compute_dtype=compute_dtype)
+    def prefill(params, tokens, frontend_embeds=None):
+        h = forward(params, tokens, cfg, frontend_embeds=frontend_embeds,
+                    compute_dtype=compute_dtype)
         out = logits(params, h[:, -1:, :], cfg, compute_dtype=compute_dtype)
         return out[:, 0, :cfg.vocab]
     return prefill

@@ -37,7 +37,11 @@ against the resident fit, the two-level fit, routed classify and
 routed serving against the CPU, and the mesh runtime: a world of one on
 the card against ``lloyd_fit`` in its six modes (λ in spans, so the
 accumulating launch runs), and two spawned gloo ranks sharing the card
-at (1, 2) and (2, 1).  This file imports neither JAX nor ``repro``."""
+at (1, 2) and (2, 1); and the LM path: flash_attention at head dims it
+pads (12, 96, 200), each attention-family smoke config on the card
+against the CPU in float32 (prefill logits, greedy tokens, with a
+frontend prefix for musicgen and chameleon) and the int8 KV cache.  This
+file imports neither JAX nor ``repro``."""
 import numpy as np
 import pytest
 
@@ -684,9 +688,110 @@ def test_flash_attention_operands_the_kernel_cannot_take_raise(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                             q, q)
-    odd = torch.zeros((2, 40, 24), device=dev)
+    wide = torch.zeros((2, 40, 264), device=dev)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(odd, odd, odd)
+        ops.flash_attention(wide, wide, wide)
+
+
+@pytest.mark.parametrize("hd", [12, 96, 200])
+@pytest.mark.parametrize("window", [-1, 48])
+def test_flash_attention_pads_any_head_dim(dev, hd, window):
+    """A head dim without an instantiation runs on the next one, zero
+    columns added and sliced off, scaled by 1/sqrt(hd): within 2e-5 of
+    the plain version at hd (granite's smoke config has hd 12)."""
+    gen = torch.Generator(device=dev).manual_seed(hd + window)
+    q, k, v = (torch.randn((3, 150, hd), generator=gen, device=dev)
+               for _ in range(3))
+    ops.reset_counts()
+    got = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    assert ops.PLAIN["flash_attention"] == 0
+    assert got.shape == (3, 150, hd) and got.is_contiguous()
+    torch.testing.assert_close(got, ref.flash_attention(q, k, v, window),
+                               rtol=2e-5, atol=2e-5)
+
+
+SMOKE_ARCHS = ["gemma-2b", "qwen1.5-32b", "qwen2.5-32b",
+               "granite-moe-3b-a800m", "mixtral-8x22b", "musicgen-large",
+               "chameleon-34b"]
+
+
+def _smoke_pair(arch, dev, **change):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models.transformer import init_params, tree_to
+
+    cfg = dataclasses.replace(registry.smoke_config(arch), **change)
+    params = init_params(cfg, torch.Generator().manual_seed(2), device="cpu")
+    return cfg, {"cpu": params, "cuda": tree_to(params, dev)}
+
+
+@pytest.mark.parametrize("arch", SMOKE_ARCHS)
+def test_smoke_archs_on_card_equal_cpu(dev, arch):
+    """Float32 on both: prefill logits (a frontend prefix for musicgen and
+    chameleon) within 1e-4 and identical greedy tokens; the card launched
+    the kernel once per layer and ran no plain version."""
+    from repro_torch.serve.lm import ServeLoop, make_prefill_fn
+
+    cfg, params = _smoke_pair(arch, dev)
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (2, 48), generator=gen)
+    fe = (torch.randn((2, 5, cfg.d_model), generator=gen)
+          if cfg.modality != "text" else None)
+    f32 = torch.float32
+    lg, out = {}, {}
+    for where in ("cuda", "cpu"):
+        ops.reset_counts()
+        lg[where] = make_prefill_fn(cfg, compute_dtype=f32)(
+            params[where], toks.to(where),
+            None if fe is None else fe.to(where))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+            assert ops.PLAIN["flash_attention"] == 0
+        out[where] = ServeLoop(cfg, params[where], max_len=32,
+                               compute_dtype=f32).generate(
+            toks[:, :8].to(where), n_new=16)
+    torch.testing.assert_close(lg["cuda"].cpu(), lg["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-32b", "granite-moe-3b-a800m",
+                                  "mixtral-8x22b"])
+def test_int8_decode_on_card_equals_cpu(dev, arch):
+    """The int8 cache, float32 compute: decode logits within 1e-4, the
+    cache's scales within rtol 1e-5 (the keys and values themselves come
+    from float32 products summed in another order on the card) and its
+    codes within 1 (rounded apart at a half-integer), greedy tokens
+    identical."""
+    from repro_torch.models.transformer import decode_forward, init_cache
+    from repro_torch.serve.lm import ServeLoop
+
+    cfg, params = _smoke_pair(arch, dev, kv_dtype="int8")
+    f32 = torch.float32
+    toks = torch.randint(0, cfg.vocab, (2, 20),
+                         generator=torch.Generator().manual_seed(4))
+    caches = {w: init_cache(cfg, 2, 24, device=w, compute_dtype=f32)
+              for w in ("cuda", "cpu")}
+    for pos in range(20):
+        lg = {w: decode_forward(params[w], caches[w], toks[:, pos:pos + 1].to(w),
+                                pos, cfg, compute_dtype=f32)[0]
+              for w in ("cuda", "cpu")}
+        torch.testing.assert_close(lg["cuda"].cpu(), lg["cpu"], rtol=1e-4,
+                                   atol=1e-4)
+    for got, want in zip(caches["cuda"], caches["cpu"]):
+        for name in ("k", "v"):
+            assert got[name]["q"].dtype == torch.int8
+            codes = (got[name]["q"].cpu().int() - want[name]["q"].int()).abs()
+            assert int(codes.max()) <= 1
+            torch.testing.assert_close(got[name]["s"].cpu(), want[name]["s"],
+                                       rtol=1e-5, atol=0)
+    out = {w: ServeLoop(cfg, params[w], max_len=32, compute_dtype=f32).generate(
+        toks[:, :8].to(w), n_new=16) for w in ("cuda", "cpu")}
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
 
 
 @pytest.mark.parametrize("shape", SEGMENT_SHAPES)
