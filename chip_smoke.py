@@ -27,7 +27,14 @@ each of which fails the run on any error:
              segment_update runs from the term-major layout the corpus
              builds once (its build time and bytes printed), twice and held
              bitwise, and bit for bit against the CPU plain version at
-             20,000 documents x K 1,000;
+             20,000 documents x K 1,000.  Last, the sLSTM scan
+             (``slstm_scan``) against its plain version, bit for bit or
+             within 1e-6, at xlstm-125m's prefill (B 2, S 4096, D 768) and
+             decode step (B 4, S 1, from a cached state), at (3, 200, 100)
+             (D not a multiple of 32) and with gates × 10, and two launches
+             of S/2 with the state carried equal to one launch bit for
+             bit; its time beside the plain loop's and the bound, its
+             registers and spills from the compiler's report;
 4. small   — small fits on the card and on the CPU (plain versions), all
              nine algorithm modes (ES-ICP to convergence, the other eight
              to ``--small-iter`` iterations), and a classify: identical
@@ -174,15 +181,16 @@ Then the out-of-core plane, the resident corpus moved off the card:
              a time limit, and a failed rank fails the run.
 
 Then, with the clustering phases' memory freed, the LM serving path
-(gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``, then the seven other
-attention-family archs of ``configs/registry.py``):
+(gemma3-1b, ``src/repro_torch/configs/gemma3_1b.py``, the seven other
+attention-family archs of ``configs/registry.py``, then the two SSM archs):
 
 12. lm kernels — flash_attention against its plain version at gemma3's
              shapes (BH 8, S 4096, hd 256, window 512 and -1, unit-normal
              inputs), at the attention family's full-width shapes
              (``--lm-batch`` × 24 heads, S ``--lm-seq``, hd 64 full causal;
-             × 40, hd 128 full; × 48, hd 128 at windows 4096 and 1024), at
-             head dims the wrapper pads (12 and 96), at (3, 200, 136, 64)
+             × 40, hd 128 full; × 48, hd 128 at windows 4096 and 1024;
+             zamba2's × 32, hd 80 full, padded to 128), at head dims the
+             wrapper pads (12 and 96), at (3, 200, 136, 64)
              window 48 (rows with no live key), max abs err ≤ 2e-5, and
              at (2, 1024, 256) full causal with q, k scaled by 6 (scores
              ≈ 30) within 2e-5 of the plain version in float64; times
@@ -191,21 +199,25 @@ attention-family archs of ``configs/registry.py``):
              on the tensor cores, fp32 on the CUDA cores); each
              instantiation's registers, spills (none allowed), shared
              memory and blocks an SM;
-13. lm small — each attention-family smoke config (granite's and
+13. lm small — each of the ten archs' smoke configs (granite's and
              mixtral's also with the int8 KV cache), parameters made on
              the CPU from ``--seed`` and carried to the card, float32
              compute on both: prefill logits within 1e-4 (a 5-position
              frontend prefix for musicgen and chameleon) and identical
              greedy tokens from ``ServeLoop.generate`` (B 2, prompt 8, 16
-             new); on the card one kernel launch per layer and no plain
-             version;
+             new; prefill S 48 for the MoE and SSM configs, 37 for the
+             others); on the card one flash_attention launch per attention
+             layer or shared_attn invocation, one slstm_scan launch per
+             sLSTM layer, and no plain version;
 14. lm main — gemma3-1b at full width, seeded weights on the card, bf16
              compute: ``make_prefill_fn`` on ``--lm-batch`` × ``--lm-seq``
              tokens (default 2 × 4096) with exactly one kernel launch per
              layer (26) and no plain call, finite logits; the same prefill
              with the plain attention agrees within twice the bf16 path's
              own rounding error (bf16 vs float32 compute, kernel path),
-             top-1 included; ``ServeLoop(max_len=64).generate`` on B 4, a
+             top-1 included, and in float32 compute within 1e-3
+             (``F32_PARITY_TOL``), top-1 included;
+             ``ServeLoop(max_len=64).generate`` on B 4, a
              32-token prompt and 32 new tokens; torch.profiler's device
              time by kernel group, and the device's idle share, for one
              prefill and for 7 decode steps;
@@ -221,7 +233,23 @@ attention-family archs of ``configs/registry.py``):
              torch.profiler's device time by group (flash_attention, the
              MoE's dispatch/combine, its expert products, other matmuls,
              casts and copies) with the idle share, for one prefill and
-             for 7 decode steps.
+             for 7 decode steps;
+16. lm ssm — zamba2-2.7b and xlstm-125m at full width and depth, seeded
+             weights built on the card (zamba2's shared attention block
+             one parameter set for its 9 invocations), bf16 compute, each
+             freed before the next: the prefill on ``--lm-batch`` ×
+             ``--lm-seq`` tokens with exactly 9 flash_attention launches
+             (zamba2) or 2 slstm_scan launches (xlstm) and no plain call,
+             finite logits; the same prefill with the plain attention and
+             the plain sLSTM scan agrees as in phase 14 (twice the bf16
+             path's own error; float32 compute within 1e-3), top-1
+             included; ``ServeLoop`` greedy decode (B 4, 32 + 32 tokens,
+             one slstm_scan launch per sLSTM layer a step);
+             torch.profiler's device time by group (the
+             chunked recurrence's products and elementwise passes,
+             slstm_scan, flash_attention, other matmuls, casts and copies)
+             with the idle share, for one prefill and for 7 decode steps;
+             peak memory.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -268,6 +296,8 @@ REPLACES = {
     "segment_update_init": "src/repro/kernels/segment_update.py:61",
     # repro's routed scan is plain JAX (a lax.scan), no Pallas kernel.
     "routed_scan": "src/repro/cluster/classify.py:114",
+    # repro's sLSTM is plain JAX (a lax.scan over time), no Pallas kernel.
+    "slstm_scan": "src/repro/models/ssm.py:156",
 }
 SOURCES = {
     "esicp_gather": "src/repro_torch/csrc/gather.cu",
@@ -282,6 +312,7 @@ SOURCES = {
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "segment_update_init": "src/repro_torch/csrc/segment_update.cu",
     "routed_scan": "src/repro_torch/csrc/routed_scan.cu",
+    "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
 }
 # The kernels each main-path run must launch.
 PATH_KERNELS = {
@@ -688,6 +719,7 @@ def kernel_phase(torch, docs, seed: int):
     log_moved_bytes(torch, b_ids, live, d, k, rows)
     del got, want, csr, means_t
     torch.cuda.empty_cache()
+    rows["slstm_scan"] = slstm_rows(torch, seed)
     for name, r in rows.items():
         log(f"  {name}: {r['ms']:.3f} ms (plain {r['plain_ms']:.3f} ms, bound"
             f" {r['bound'][0]:.3f} ms by {r['bound'][1]}, library "
@@ -695,6 +727,106 @@ def kernel_phase(torch, docs, seed: int):
             f"{r['max_abs_err']:.3g}")
     log(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
     return rows
+
+
+# xlstm-125m's sLSTM shapes: (what, B, S, D, gate scale, initial state
+# from a seeded cache (else the prefill's c = n = 0, m = -1e30)).
+SLSTM_CASES = (("xlstm-125m prefill", 2, 4096, 768, 1.0, False),
+               ("xlstm-125m decode step", 4, 1, 768, 1.0, True),
+               ("D not a multiple of 32", 3, 200, 100, 1.0, True),
+               ("gates x10", 2, 4096, 768, 10.0, False))
+SLSTM_TOL = 1e-6
+
+
+def slstm_state(torch, b: int, d: int, gen, cached: bool):
+    dev = torch.device("cuda")
+    if not cached:
+        zero = torch.zeros((b, d), device=dev)
+        return zero, zero.clone(), torch.full((b, d), -1e30, device=dev)
+    return (torch.randn((b, d), generator=gen, device=dev),
+            torch.rand((b, d), generator=gen, device=dev) * 4 + 0.5,
+            torch.randn((b, d), generator=gen, device=dev) * 3)
+
+
+def slstm_compare(torch, what: str, got, want) -> tuple[float, bool]:
+    """(max abs err, bitwise) of (hs, c, n, m) against the plain version;
+    fails above SLSTM_TOL."""
+    err, same = 0.0, True
+    for name, g, w in zip(("hs", "c", "n", "m"), got, want):
+        require(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                f"slstm_scan {what}: {name} malformed")
+        same = same and torch.equal(g, w)
+        err = max(err, max_err(torch, g, w))
+    require(err <= SLSTM_TOL, f"slstm_scan {what}: max abs err {err} above "
+            f"{SLSTM_TOL}")
+    return err, same
+
+
+def slstm_rows(torch, seed: int) -> dict:
+    """slstm_scan against its plain version at SLSTM_CASES, the split-state
+    check, and its times beside the plain loop's and the bound."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.slstm_scan import THREADS
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    errs, bitwise, timed = [], True, {}
+    for what, b, s, d, scale, cached in SLSTM_CASES:
+        gates = torch.randn((b, s, 4 * d), generator=gen, device=dev) * scale
+        state = slstm_state(torch, b, d, gen, cached)
+        ops.reset_counts()
+        got = ops.slstm_scan(gates, *state)
+        require(ops.LAUNCHES["slstm_scan"] == 1 and ops.PLAIN["slstm_scan"]
+                == 0, f"slstm_scan {what} did not launch once")
+        err, same = slstm_compare(torch, what, got,
+                                  ref.slstm_scan(gates, *state))
+        errs.append(err)
+        bitwise = bitwise and same
+        log(f"  slstm_scan {what} (B {b}, S {s}, D {d}, gates x{scale:g}): "
+            f"{'bit for bit' if same else f'max abs err {err:.3g}'} against "
+            f"the plain version; {b * -(-d // THREADS)} one-warp blocks")
+        if what == "xlstm-125m prefill":
+            half = s // 2
+            first = ops.slstm_scan(gates[:, :half].contiguous(), *state)
+            second = ops.slstm_scan(gates[:, half:].contiguous(), *first[1:])
+            split = (torch.cat([first[0], second[0]], dim=1), *second[1:])
+            require(all(torch.equal(a, w) for a, w in zip(split, got)),
+                    "slstm_scan: S/2 + S/2 with the state carried differs "
+                    "from one launch over S")
+            log(f"  slstm_scan {what}: S/2 + S/2 with the state carried "
+                f"equals one launch bit for bit")
+            timed["prefill"] = (gates, state, b, s, d)
+        if what == "xlstm-125m decode step":
+            timed["decode"] = (gates, state)
+    gates, state, b, s, d = timed["prefill"]
+    ms = time_ms(torch, lambda: ops.slstm_scan(gates, *state))
+    # gates read once, hs written once, the state read and written once
+    n_bytes = 4 * b * s * 4 * d + 4 * b * s * d + 6 * 4 * b * d
+    # 19 float operations a channel a step (adds, max, exp, tanh, the
+    # sigmoid's exp, add and quotient, products, the output's quotient)
+    bound = bound_ms(n_bytes, 19 * b * s * d)
+    (res,) = _build.ptxas_report("slstm_scan")
+    step_gates, step_state = timed["decode"]
+    step_ms = time_ms(torch, lambda: ops.slstm_scan(step_gates, *step_state))
+    row = dict(max_abs_err=max(errs),
+               ms=ms,
+               plain_ms=time_ms(torch, lambda: ref.slstm_scan(gates, *state),
+                                reps=3),
+               library_ms=None, bound=bound,
+               extra=dict(bitwise=bitwise, dependent_steps=s,
+                          ns_per_step=ms * 1e6 / s, decode_step_ms=step_ms,
+                          blocks=b * -(-d // THREADS),
+                          registers=res["registers"],
+                          spill_bytes=res["spill_stores"] + res["spill_loads"]))
+    log(f"  slstm_scan (B {b}, S {s}, D {d}): {ms:.3f} ms, "
+        f"{row['extra']['ns_per_step']:.1f} ns a step over {s} dependent "
+        f"steps; plain loop {row['plain_ms']:.1f} ms; bound {bound[0]:.4f} ms"
+        f" by {bound[1]} (not reachable by a sequential scan); decode step "
+        f"(B 4, S 1) {step_ms:.4f} ms; {row['extra']['blocks']} one-warp "
+        f"blocks (from the grid; where they land is not read)")
+    log(f"  slstm_scan_kernel: {res['registers']} registers, spill stores "
+        f"{res['spill_stores']} B, loads {res['spill_loads']} B (ptxas)")
+    return row
 
 
 def fitted_rho(torch, docs, model, row) -> None:
@@ -2396,13 +2528,15 @@ def _shape_record(r: dict) -> dict:
                 max_abs_err=r["max_abs_err"])
 
 
-# The attention family's full-width prefill shapes for phase 12: (name,
-# heads per row of the batch, hd, window).  mixtral's window 4096 equals
-# full causal at S 4096; at 1024 a band is live at hd 128.
+# The attention family's and zamba2's full-width prefill shapes for phase
+# 12: (name, heads per row of the batch, hd, window).  mixtral's window
+# 4096 equals full causal at S 4096; at 1024 a band is live at hd 128.
+# zamba2's hd 80 runs the hd-128 instantiation on zero-padded operands.
 FAMILY_FLASH_SHAPES = (("granite-moe-3b-a800m", 24, 64, -1),
                        ("qwen2.5-32b", 40, 128, -1),
                        ("mixtral-8x22b", 48, 128, 4096),
-                       ("mixtral-8x22b window 1024", 48, 128, 1024))
+                       ("mixtral-8x22b window 1024", 48, 128, 1024),
+                       ("zamba2-2.7b (hd 80, padded to 128)", 32, 80, -1))
 
 
 def lm_kernel_phase(torch, seed: int, batch: int, seq: int):
@@ -2488,20 +2622,31 @@ def lm_kernel_phase(torch, seed: int, batch: int, seq: int):
     return row
 
 
+def kind_counts(cfg) -> dict:
+    """The kernel launches one prefill of ``cfg`` makes: flash_attention
+    per attention layer or shared_attn invocation, slstm_scan per sLSTM
+    layer."""
+    from repro_torch.models.transformer import ATTN_KINDS, layer_specs
+
+    kinds = [spec.kind for spec in layer_specs(cfg)]
+    return {"flash_attention": sum(k in ATTN_KINDS for k in kinds),
+            "slstm_scan": kinds.count("slstm")}
+
+
 def lm_small_phase(torch, seed: int):
-    """Every attention-family smoke config, float32 compute, on the card and
-    on the CPU from the same parameters: prefill logits (with a frontend
-    prefix for the audio and image archs) and greedy tokens; granite's and
+    """Every arch's smoke config, float32 compute, on the card and on the
+    CPU from the same parameters: prefill logits (with a frontend prefix
+    for the audio and image archs) and greedy tokens; granite's and
     mixtral's once more with the int8 KV cache."""
     import dataclasses
 
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import init_params, tree_to
+    from repro_torch.models.transformer import SSM_KINDS, init_params, tree_to
     from repro_torch.serve.lm import ServeLoop, make_prefill_fn
 
-    t0 = phase("lm small cross-check (cuda vs cpu), the attention-family "
-               "smoke configs")
+    t0 = phase(f"lm small cross-check (cuda vs cpu), the smoke configs of "
+               f"the {len(registry.ARCHS)} archs")
     cases = [(arch, "bf16") for arch in registry.ARCHS]
     cases += [("granite-moe-3b-a800m", "int8"), ("mixtral-8x22b", "int8")]
     f32 = torch.float32
@@ -2510,8 +2655,12 @@ def lm_small_phase(torch, seed: int):
         gen = torch.Generator().manual_seed(seed)
         params = {"cpu": init_params(cfg, gen, device="cpu")}
         params["cuda"] = tree_to(params["cpu"], "cuda")
-        # B·S a multiple of the MoE smoke configs' routing group (32).
-        s = 48 if cfg.n_experts else 37
+        # B·S a multiple of the MoE smoke configs' routing group (32), S
+        # of the SSM smoke configs' chunk (16); the others a ragged 37.
+        ssm = any(sp.kind in SSM_KINDS for seg in cfg.segments
+                  for sp in seg.layers)
+        s = 48 if cfg.n_experts or ssm else 37
+        want = kind_counts(cfg)
         toks = torch.randint(0, cfg.vocab, (2, s), generator=gen,
                              dtype=torch.int32)
         fe = (torch.randn((2, 5, cfg.d_model), generator=gen)
@@ -2524,16 +2673,16 @@ def lm_small_phase(torch, seed: int):
                 params[dev], toks.to(dev), None if fe is None else fe.to(dev))
             if dev == "cuda":
                 torch.cuda.synchronize()
-                launches = ops.LAUNCHES["flash_attention"]
+                launches = {k: ops.LAUNCHES[k] for k in want}
                 plain = sum(ops.PLAIN.values())
             out[dev] = ServeLoop(cfg, params[dev], compute_dtype=f32).generate(
                 prompts.to(dev), n_new=16)
         what = f"{cfg.name} kv {kv}"
         err = check_close(torch, f"lm small prefill logits cuda vs cpu, {what}",
                           lg["cuda"].cpu(), lg["cpu"], 1e-4)
-        require(launches == cfg.n_layers and plain == 0,
-                f"lm small {what}: flash_attention launches {launches}, "
-                f"plain calls {plain}")
+        require(launches == want and plain == 0,
+                f"lm small {what}: kernel launches {launches}, expected "
+                f"{want}; plain calls {plain}")
         require(torch.equal(out["cuda"].cpu(), out["cpu"]),
                 f"lm small {what}: greedy tokens differ cuda vs cpu:\n"
                 f"{out['cuda']}\n{out['cpu']}")
@@ -2588,57 +2737,82 @@ def log_breakdown(what: str, wall: float, groups: dict, n: int, top) -> None:
         log(f"    {ms:8.2f} ms  {name[:100]}")
 
 
-class plain_attention:
-    """Routes the model's attention to the plain version on the card (for
-    the parity prefill only) by swapping ops.flash_attention."""
+class plain_kernels:
+    """Routes the model's attention and sLSTM scan to their plain versions
+    on the card (for the parity prefill only) by swapping
+    ops.flash_attention and ops.slstm_scan."""
 
     def __enter__(self):
         from repro_torch.kernels import ops, ref
 
-        self.ops, self.kernel = ops, ops.flash_attention
+        self.ops = ops
+        self.kernels = ops.flash_attention, ops.slstm_scan
         ops.flash_attention = lambda q, k, v, *, window=-1: \
             ref.flash_attention(q, k, v, window)
+        ops.slstm_scan = ref.slstm_scan
 
     def __exit__(self, *exc):
-        self.ops.flash_attention = self.kernel
+        self.ops.flash_attention, self.ops.slstm_scan = self.kernels
 
 
-def prefill_parity(torch, cfg, prefill, params, tokens, fe, logits) -> int:
-    """The same prefill with the plain attention against the kernel's
-    ``logits``, within twice the bf16 path's own rounding error (bf16 vs
-    float32 compute, kernel path), top-1 included.  Returns the kernel
-    launches of the float32 prefill."""
+# The kernels' float32 prefill against the plain versions' float32 prefill:
+# a fixed bar on the logits (max |x| ≈ 3-13 at these archs), 8× the largest
+# difference seen (zamba2-2.7b, 1.2e-4).  A MoE arch's top-k routing could
+# turn a 1e-6 difference into another expert; with these seeds none does.
+F32_PARITY_TOL = 1e-3
+
+
+def _top1_agree(torch, what: str, a, b, tol: float) -> None:
+    """Top-1 equal in every row, or a gap within ``tol`` between the two
+    picks."""
+    top_a, top_b = a.argmax(-1), b.argmax(-1)
+    for r in range(a.shape[0]):
+        i, j = int(top_a[r]), int(top_b[r])
+        if i != j:
+            gap = max(abs(float(a[r, i] - a[r, j])), abs(float(b[r, i] - b[r, j])))
+            log(f"  {what} row {r}: top-1 {i} vs {j}, logit gap {gap:.4g}")
+            require(gap <= tol, f"{what} row {r}: top-1 differs by a gap "
+                    f"{gap} > {tol}")
+    log(f"  {what}: top-1 equal in {int((top_a == top_b).sum())} of "
+        f"{a.shape[0]} rows")
+
+
+def prefill_parity(torch, cfg, prefill, params, tokens, fe, logits) -> dict:
+    """The same prefill with the plain attention and sLSTM scan against
+    the kernels' ``logits``, within twice the bf16 path's own rounding
+    error (bf16 vs float32 compute, kernel path), top-1 included; then
+    both paths in float32 compute, within F32_PARITY_TOL, top-1 included.
+    Returns the kernel launches of the float32 prefill."""
     from repro_torch.kernels import ops
     from repro_torch.serve.lm import make_prefill_fn
 
-    batch = tokens.shape[0]
-    with plain_attention():
+    prefill32 = make_prefill_fn(cfg, compute_dtype=torch.float32)
+    with plain_kernels():
         ops.reset_counts()
         plain_logits = prefill(params, tokens, fe)
-        require(ops.LAUNCHES["flash_attention"] == 0,
-                "the parity prefill launched the kernel")
+        plain32 = prefill32(params, tokens, fe)
+        require(not any(ops.LAUNCHES.values()),
+                "the parity prefills launched a kernel")
     ops.reset_counts()
-    ref32 = make_prefill_fn(cfg, compute_dtype=torch.float32)(params, tokens,
-                                                              fe)
-    launches = ops.LAUNCHES["flash_attention"]
+    ref32 = prefill32(params, tokens, fe)
+    launches = dict(ops.LAUNCHES)
     a, b = logits.float(), plain_logits.float()
     diff = float((a - b).abs().max())
     noise = float((a - ref32).abs().max())
     tol = 2 * noise
-    log(f"  parity: kernel vs plain attention (bf16 path) max abs logit diff "
+    log(f"  parity: kernels vs plain versions (bf16 path) max abs logit diff "
         f"{diff:.4g}; bf16 vs float32 compute (kernel) {noise:.4g}; "
         f"tolerance 2 × that = {tol:.4g}; logits max |x| "
         f"{float(a.abs().max()):.4g}")
     require(diff <= tol, f"kernel vs plain prefill logits differ by {diff} "
             f"> {tol}")
-    top_a, top_b = a.argmax(-1), b.argmax(-1)
-    for r in range(batch):
-        i, j = int(top_a[r]), int(top_b[r])
-        if i != j:
-            gap = max(abs(float(a[r, i] - a[r, j])), abs(float(b[r, i] - b[r, j])))
-            log(f"  row {r}: top-1 {i} vs {j}, logit gap {gap:.4g}")
-            require(gap <= tol, f"row {r}: top-1 differs by a gap {gap} > {tol}")
-    log(f"  top-1 equal in {int((top_a == top_b).sum())} of {batch} rows")
+    _top1_agree(torch, "bf16 path", a, b, tol)
+    diff32 = float((ref32 - plain32).abs().max())
+    log(f"  parity in float32 compute: kernels vs plain versions max abs "
+        f"logit diff {diff32:.4g} (tolerance {F32_PARITY_TOL})")
+    require(diff32 <= F32_PARITY_TOL, f"float32 kernel vs plain prefill "
+            f"logits differ by {diff32} > {F32_PARITY_TOL}")
+    _top1_agree(torch, "float32 path", ref32, plain32, F32_PARITY_TOL)
     return launches
 
 
@@ -2698,7 +2872,7 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
     run_launches = ops.LAUNCHES["flash_attention"]
 
     run_launches += prefill_parity(torch, cfg, prefill, params, tokens,
-                                   None, logits)
+                                   None, logits)["flash_attention"]
     del logits
 
     # Decode: teacher-forced prompt then greedy tokens, through the cache.
@@ -2732,121 +2906,161 @@ def lm_main_phase(torch, seed: int, batch: int, seq: int):
 
 
 # The attention family at full width on the card (after gemma3-1b, phase
-# 14): (arch, layers kept, None for the full depth; new tokens of the
-# greedy run).  The depth of the archs that do not fit is cut to what one
-# 80 GB card holds beside the parity prefills; widths are never cut.
-LM_FAMILY = (("granite-moe-3b-a800m", None, 32),
-             ("gemma-2b", None, 16),
-             ("musicgen-large", None, 16),
-             ("qwen2.5-32b", 4, 16),
-             ("qwen1.5-32b", 4, 16),
-             ("chameleon-34b", 4, 16),
-             ("mixtral-8x22b", 2, 16))
+# 15): (arch, layers kept, None for the full depth; new tokens of the
+# greedy run; profiled: the prefill timed as a median of 3, both profiles,
+# two greedy runs).  The depth of the archs that do not fit is cut to what
+# one 80 GB card holds beside the parity prefills; widths are never cut.
+LM_FAMILY = (("granite-moe-3b-a800m", None, 32, True),
+             ("gemma-2b", None, 16, False),
+             ("musicgen-large", None, 16, False),
+             ("qwen2.5-32b", 4, 16, False),
+             ("qwen1.5-32b", 4, 16, False),
+             ("chameleon-34b", 4, 16, False),
+             ("mixtral-8x22b", 2, 16, False))
+# The SSM archs at full width and depth (phase 16), in LM_FAMILY's format.
+LM_SSM = (("zamba2-2.7b", None, 32, True),
+          ("xlstm-125m", None, 32, True))
+# The arch whose greedy run is repeated with the int8 KV cache.
+INT8_ARCH = "granite-moe-3b-a800m"
 
-# The MoE's three steps (models/layers.py), labelled for the profiler.
-MOE_SPANS = {"_moe_dispatch": "moe dispatch/combine",
-             "_moe_combine": "moe dispatch/combine",
-             "_moe_experts": "moe experts"}
+# Functions wrapped in record_function ranges for the profiled runs only:
+# name -> (module under repro_torch.models, the group of the kernels its
+# matmul ops launch, the group of its other ops' kernels (None: grouped
+# as outside any range)).  The MoE's three steps (models/layers.py) and
+# the SSMs' chunked recurrence (models/ssm.py).
+SPANS = {"_moe_dispatch": ("layers", "moe dispatch/combine",
+                           "moe dispatch/combine"),
+         "_moe_combine": ("layers", "moe dispatch/combine",
+                          "moe dispatch/combine"),
+         "_moe_experts": ("layers", "moe expert products", None),
+         "_chunked_glr": ("ssm", "recurrence products",
+                          "recurrence elementwise")}
+# Kernels launched through ctypes (no op owns them), grouped by name.
+CTYPES_KERNELS = {"flash_kernel": "flash_attention",
+                  "slstm_scan_kernel": "slstm_scan"}
 MATMUL_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
               "aten::matmul", "aten::linear", "aten::einsum"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::to", "aten::clone",
             "aten::contiguous"}
 
 
-class moe_spans:
-    """Wraps the MoE's three steps in ``record_function`` ranges, for the
+class profile_spans:
+    """Wraps the functions of SPANS in ``record_function`` ranges, for the
     profiled runs only."""
 
     def __enter__(self):
+        import importlib
+
         import torch
 
-        from repro_torch.models import layers as L
+        self.saved = []
+        for n, (mod, _, _) in SPANS.items():
+            m = importlib.import_module(f"repro_torch.models.{mod}")
+            f = getattr(m, n)
+            self.saved.append((m, n, f))
 
-        self.L, self.saved = L, {n: getattr(L, n) for n in MOE_SPANS}
-        for n, f in self.saved.items():
             def wrapped(*a, _f=f, _n=n):
                 with torch.profiler.record_function(_n):
                     return _f(*a)
-            setattr(L, n, wrapped)
+            setattr(m, n, wrapped)
 
     def __exit__(self, *exc):
-        for n, f in self.saved.items():
-            setattr(self.L, n, f)
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def _ctypes_group(name: str):
+    return next((g for k, g in CTYPES_KERNELS.items() if k in name.lower()),
+                None)
 
 
 def device_groups(torch, fn):
     """(wall s, {group: device ms}, kernels, top) of one call of ``fn``
     under torch.profiler, each kernel grouped by the op that launched it:
-    the attention kernel; the MoE's routing, dispatch and combine; its
-    expert products (the float32 bmm's); other matmuls (projections, the
-    MLP, the head, the decode attention's einsums); casts and copies (the
-    fp32 -> bf16 weight casts, mostly); the rest.  A kernel no op claims
-    counts under "unattributed"."""
+    the attention and sLSTM kernels; the MoE's routing, dispatch and
+    combine; its expert products (the float32 bmm's); the chunked
+    recurrence's products and its elementwise passes; other matmuls
+    (projections, the MLP, the head, the decode attention's einsums);
+    casts and copies (the fp32 -> bf16 weight casts, mostly); the rest.  A
+    kernel no op claims counts under "unattributed"; groups with no
+    kernel are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with moe_spans(), profile(activities=[ProfilerActivity.CPU,
-                                          ProfilerActivity.CUDA]) as prof:
+    with profile_spans(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    groups = dict.fromkeys(("flash_attention", "moe dispatch/combine",
-                            "moe expert products", "matmuls",
-                            "casts and copies", "other"), 0.0)
+    groups = dict.fromkeys((*CTYPES_KERNELS.values(),
+                            *(g for _, *gs in SPANS.values() for g in gs if g),
+                            "matmuls", "casts and copies", "other"), 0.0)
     by_name: dict = {}
     device_ms, n = 0.0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            if e.name in MOE_SPANS:      # a range's own span on the device
+            if e.name in SPANS:          # a range's own span on the device
                 continue
             ms = e.time_range.elapsed_us() / 1e3
             device_ms += ms
             n += 1
             by_name[e.name] = by_name.get(e.name, 0.0) + ms
-            # launched through ctypes, so no op owns it
-            if "flash_kernel" in e.name.lower():
-                groups["flash_attention"] += ms
+            if _ctypes_group(e.name):
+                groups[_ctypes_group(e.name)] += ms
             continue
         span = e
-        while span is not None and span.name not in MOE_SPANS:
+        while span is not None and span.name not in SPANS:
             span = span.cpu_parent
-        span = None if span is None else MOE_SPANS[span.name]
+        span = None if span is None else SPANS[span.name]
         for kern in getattr(e, "kernels", ()):
             ms = kern.duration / 1e3
-            if "flash_kernel" in kern.name.lower():
+            if _ctypes_group(kern.name):
                 continue
-            if span == "moe experts" and e.name in MATMUL_OPS:
-                key = "moe expert products"
-            elif span == "moe dispatch/combine":
-                key = span
-            elif e.name in MATMUL_OPS:
-                key = "matmuls"
-            elif e.name in COPY_OPS:
-                key = "casts and copies"
-            else:
-                key = "other"
+            key = None
+            if span is not None:
+                key = span[1] if e.name in MATMUL_OPS else span[2]
+            if key is None:
+                key = ("matmuls" if e.name in MATMUL_OPS else
+                       "casts and copies" if e.name in COPY_OPS else "other")
             groups[key] += ms
+    groups = {k: v for k, v in groups.items() if v > 0}
     groups["unattributed"] = max(0.0, device_ms - sum(groups.values()))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return wall, groups, n, top
 
 
-def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
-                   batch: int, seq: int) -> tuple[int, int]:
-    """One attention-family arch at full width on the card, seeded weights,
-    bf16 compute: the prefill (one kernel launch per layer, no plain call,
-    finite logits, plain-attention parity) and a greedy decode; for
-    granite-moe-3b-a800m also the int8 cache and the profiles.  Returns
-    (the first prefill's kernel launches, every launch of the arch)."""
+def unique_numel(tree) -> int:
+    """Elements of the distinct tensors of a parameter tree (zamba2's
+    shared block counts once, as in ``cfg.n_params()``)."""
+    seen, stack = {}, [tree]
+    while stack:
+        node = stack.pop()
+        if hasattr(node, "numel"):
+            seen[id(node)] = node.numel()
+        else:
+            stack.extend(node.values() if isinstance(node, dict) else node)
+    return sum(seen.values())
+
+
+def lm_family_arch(torch, arch: str, layers, n_new: int, profiled: bool,
+                   seed: int, batch: int, seq: int) -> tuple[dict, int]:
+    """One arch at full width on the card, seeded weights, bf16 compute:
+    the prefill (its kernel launches by kind, no plain call, finite
+    logits, parity with the plain kernels) and a greedy decode (one
+    slstm_scan launch per sLSTM layer a step, no plain call); profiled
+    archs also get a median of 3 prefills, both profiles and a second
+    greedy run, INT8_ARCH the int8 cache.  Returns (the first prefill's
+    kernel launches, the flash_attention launches of every prefill of the
+    arch)."""
     import dataclasses
 
     from repro_torch.configs import registry
     from repro_torch.kernels import ops
     from repro_torch.launch.shapes import FRONTEND_LEN
     from repro_torch.models.config import Segment
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import init_params, layer_specs
     from repro_torch.serve.lm import ServeLoop, make_prefill_fn
 
     t0 = time.perf_counter()
@@ -2856,24 +3070,30 @@ def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
         (seg,) = cfg.segments
         cfg = dataclasses.replace(cfg, segments=(
             Segment(reps=layers // len(seg.layers), layers=seg.layers),))
-    main = arch == "granite-moe-3b-a800m"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, gen, device=dev)
-    n_params = sum(t.numel() for t in params.values() if torch.is_tensor(t))
-    n_params += sum(t.numel() for lp in params["layers"] for t in lp.values())
+    n_params = unique_numel(params)
     require(n_params == cfg.n_params(),
             f"{arch}: {n_params} parameters, the config says {cfg.n_params()}")
+    kinds = [spec.kind for spec in layer_specs(cfg)]
+    shared = sum(lp is params.get("shared") for lp in params["layers"])
+    window = max(spec.window for spec in layer_specs(cfg))
     s_fe = FRONTEND_LEN.get(arch, 0)
     log(f"  {arch}: d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
-        f"of {cfg.hd}, {cfg.n_layers} of {full_layers} layers"
+        f"of {cfg.hd}, {cfg.n_layers} of {full_layers} layers ("
+        f"{', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))})"
+        f"{f', one shared block for {shared} invocations' if shared else ''}"
         f"{f', {cfg.n_experts} experts top {cfg.top_k}' if cfg.n_experts else ''}"
-        f"{f', window {cfg.segments[0].layers[0].window}' if cfg.segments[0].layers[0].window > 0 else ''}"
+        f"{f', window {window}' if window > 0 else ''}"
+        f"{f', ssm_state {cfg.ssm_state}' if 'mamba2' in kinds else ''}"
+        f"{f', chunk {cfg.ssm_chunk}' if {'mamba2', 'mlstm'} & set(kinds) else ''}"
         f"{f', frontend {s_fe} positions' if s_fe else ''}: {n_params:,} "
         f"parameters ({n_params * 4 / 1e9:.2f} GB fp32), "
         f"{cfg.n_active_params():,} active")
+    want = kind_counts(cfg)
     tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
                            device=dev, dtype=torch.int32)
     fe = (torch.randn((batch, s_fe, cfg.d_model), generator=gen, device=dev)
@@ -2886,16 +3106,16 @@ def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t
     launches, plain = dict(ops.LAUNCHES), dict(ops.PLAIN)
-    require(launches["flash_attention"] == cfg.n_layers,
-            f"{arch}: prefill launched flash_attention "
-            f"{launches['flash_attention']} times, not once per layer")
-    require(all(n == 0 for n in plain.values()),
+    got = {k: launches[k] for k in want}
+    require(got == want and sum(launches.values()) == sum(want.values()),
+            f"{arch}: prefill kernel launches {launches}, expected {want}")
+    require(not any(plain.values()),
             f"{arch}: a plain version ran on the prefill: {plain}")
     require(logits.shape == (batch, cfg.vocab)
             and bool(torch.isfinite(logits).all()),
             f"{arch}: prefill logits malformed: {tuple(logits.shape)}")
     times = []
-    for _ in range(3 if main else 1):
+    for _ in range(3 if profiled else 1):
         torch.cuda.synchronize()
         t = time.perf_counter()
         prefill(params, tokens, fe)
@@ -2903,16 +3123,16 @@ def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
         times.append(time.perf_counter() - t)
     pre_s = statistics.median(times)
     log(f"  prefill B {batch} S {seq}: {pre_s * 1e3:.1f} ms "
-        f"{'median of 3' if main else 'warm'} (first call "
+        f"{'median of 3' if profiled else 'warm'} (first call "
         f"{cold_s * 1e3:.1f} ms), {batch * seq / pre_s:.0f} tokens/s, "
-        f"{launches['flash_attention']} flash_attention launches, no plain "
-        f"call; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if main:
+        f"launches { {k: v for k, v in got.items() if v} }, no plain call; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profiled:
         log_breakdown("prefill under the profiler", *device_groups(
             torch, lambda: prefill(params, tokens, fe)))
     run_launches = ops.LAUNCHES["flash_attention"]
     run_launches += prefill_parity(torch, cfg, prefill, params, tokens, fe,
-                                   logits)
+                                   logits)["flash_attention"]
     del logits
     torch.cuda.empty_cache()
 
@@ -2921,8 +3141,9 @@ def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
                             dtype=torch.int32)
     steps = 32 + n_new - 1
     runs = []
-    for _ in range(2 if main else 1):
+    for _ in range(2 if profiled else 1):
         torch.cuda.synchronize()
+        ops.reset_counts()
         t = time.perf_counter()
         out = loop.generate(prompts, n_new=n_new)
         torch.cuda.synchronize()
@@ -2930,11 +3151,17 @@ def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
     require(out.shape == (4, 32 + n_new) and torch.equal(out[:, :32], prompts)
             and bool(((out >= 0) & (out < cfg.vocab)).all()),
             f"{arch}: generate output malformed")
+    require(ops.LAUNCHES["slstm_scan"] == steps * want["slstm_scan"]
+            and not any(ops.PLAIN.values()),
+            f"{arch}: decode launched slstm_scan {ops.LAUNCHES['slstm_scan']}"
+            f" times, plain calls {ops.PLAIN}")
+    n_scan = ops.LAUNCHES["slstm_scan"]
     log(f"  decode: B 4, {steps} steps: {runs[-1] / steps * 1e3:.2f} ms per "
-        f"step{f' (first run {runs[0] / steps * 1e3:.2f} ms)' if main else ''}"
-        f", {4 * steps / runs[-1]:.0f} tokens/s; new tokens of row 0: "
-        f"{out[0, 32:].tolist()}")
-    if main:
+        f"step{f' (first run {runs[0] / steps * 1e3:.2f} ms)' if profiled else ''}"
+        f", {4 * steps / runs[-1]:.0f} tokens/s"
+        f"{f', slstm_scan launches {n_scan}' if n_scan else ''}"
+        f"; new tokens of row 0: {out[0, 32:].tolist()}")
+    if arch == INT8_ARCH:
         loop8 = ServeLoop(dataclasses.replace(cfg, kv_dtype="int8"), params,
                           max_len=64)
         torch.cuda.synchronize()
@@ -2948,31 +3175,35 @@ def lm_family_arch(torch, arch: str, layers, n_new: int, seed: int,
         log(f"  int8 KV cache: {t8 / steps * 1e3:.2f} ms per step; "
             f"{same:.1%} of the {4 * n_new} greedy tokens equal the bf16 "
             f"cache's; new tokens of row 0: {out8[0, 32:].tolist()}")
+        del loop8
+    if profiled:
         log_breakdown("7 decode steps under the profiler", *device_groups(
             torch, lambda: loop.generate(prompts[:, :4], n_new=4)))
-        del loop8
     log(f"  {arch} done in {time.perf_counter() - t0:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params, loop
     torch.cuda.empty_cache()
-    return launches["flash_attention"], run_launches
+    return launches, run_launches
 
 
-def lm_family_phase(torch, seed: int, batch: int, seq: int) -> tuple[int, int]:
-    """The seven other attention-family archs at full width, one after the
-    other, each freed before the next.  Returns (the first prefills'
-    kernel launches, every launch of the phase)."""
-    t0 = phase(f"lm families: {len(LM_FAMILY)} archs at full width, prefill "
-               f"B {batch} S {seq} + decode")
-    main = total = 0
-    for arch, layers, n_new in LM_FAMILY:
-        got, run = lm_family_arch(torch, arch, layers, n_new, seed, batch, seq)
-        main += got
+def lm_family_phase(torch, title: str, entries, seed: int, batch: int,
+                    seq: int) -> tuple[dict, int]:
+    """The archs of ``entries`` (LM_FAMILY's format) one after the other,
+    each freed before the next.  Returns (the first prefills' kernel
+    launches summed, every flash_attention launch of the phase)."""
+    t0 = phase(f"{title}: {', '.join(e[0] for e in entries)} at full width, "
+               f"prefill B {batch} S {seq} + decode")
+    first, total = {}, 0
+    for arch, layers, n_new, profiled in entries:
+        got, run = lm_family_arch(torch, arch, layers, n_new, profiled, seed,
+                                  batch, seq)
+        for k, v in got.items():
+            first[k] = first.get(k, 0) + v
         total += run
-    log(f"lm families done in {time.perf_counter() - t0:.1f} s; "
-        f"flash_attention launches: {main} on the first prefills, {total} "
-        f"in all")
-    return main, total
+    log(f"{title} done in {time.perf_counter() - t0:.1f} s; first prefills' "
+        f"launches { {k: v for k, v in first.items() if v} }; "
+        f"flash_attention launches in all {total}")
+    return first, total
 
 
 # ---------------------------------------------------------------------------
@@ -3424,11 +3655,20 @@ def main() -> int:
     lm_small_phase(torch, args.seed)
     launches["flash_attention"], run_launches = lm_main_phase(
         torch, args.seed, args.lm_batch, args.lm_seq)
-    got, run = lm_family_phase(torch, args.seed, args.lm_batch, args.lm_seq)
-    launches["flash_attention"] += got
-    rows["flash_attention"]["extra"]["launches_in_run"] = run_launches + run
-    paths["flash_attention"] = ["gemma3-1b prefill"] + [
-        f"{arch} prefill" for arch, _, _ in LM_FAMILY]
+    from repro_torch.configs import registry
+
+    launches["slstm_scan"] = 0
+    paths["flash_attention"] = ["gemma3-1b prefill"]
+    paths["slstm_scan"] = []
+    for title, entries in (("lm families", LM_FAMILY), ("lm ssm", LM_SSM)):
+        got, run = lm_family_phase(torch, title, entries, args.seed,
+                                   args.lm_batch, args.lm_seq)
+        run_launches += run
+        for name in ("flash_attention", "slstm_scan"):
+            launches[name] += got[name]
+            paths[name] += [f"{e[0]} prefill" for e in entries
+                            if kind_counts(registry.get_config(e[0]))[name]]
+    rows["flash_attention"]["extra"]["launches_in_run"] = run_launches
 
     kernels = []
     for name in SOURCES:

@@ -1,10 +1,7 @@
-"""Architecture registry of the port: the archs it can run.
-
-``repro.configs.registry.ARCHS`` lists ten; the port runs the serving
-path of the eight attention-family ones (dense, MoE, and the audio and
-image stub frontends).  Asking for xlstm-125m or zamba2-2.7b, whose
-mamba2/mlstm/slstm/shared_attn layer kinds are not ported, raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 3 lists what is left).
+"""Architecture registry of the port: the ten archs of
+``repro.configs.registry.ARCHS``, in its order, all of which the port
+serves (dense, MoE, the audio and image stub frontends, the xLSTM and the
+Mamba2 hybrid with its shared attention block).
 """
 from __future__ import annotations
 
@@ -23,16 +20,12 @@ REPRO_ARCHS = [
     "musicgen-large",
     "chameleon-34b",
 ]
-ARCHS = [a for a in REPRO_ARCHS if a not in ("xlstm-125m", "zamba2-2.7b")]
+ARCHS = list(REPRO_ARCHS)
 
 
 def _module(name: str):
     if name not in REPRO_ARCHS:
         raise KeyError(f"unknown arch {name!r}; one of {REPRO_ARCHS}")
-    if name not in ARCHS:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1 item 3); "
-            f"the port runs {ARCHS}")
     mod = name.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 

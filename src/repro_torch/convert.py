@@ -12,7 +12,8 @@ object's fields), so this module needs nothing of ``repro``.  For a
 
 With these, a model fitted by ``repro`` classifies identically in the port,
 and a ``repro`` state steps identically.  :func:`lm_params_from_numpy` does
-the same for an LM's parameters (``repro.models.init_params``).
+the same for an LM's parameters (``repro.models.init_params``), and
+:func:`lm_cache_from_numpy` for its decode cache.
 """
 from __future__ import annotations
 
@@ -82,22 +83,48 @@ def lm_params_from_numpy(tree, cfg, *, device="cuda") -> dict:
     """The nested dict of numpy leaves of a ``repro`` LM parameter tree
     (``jax.tree_util.tree_map(np.asarray, params)``), whose segment leaves
     are stacked on a leading ``reps`` axis, -> the port's parameters: one
-    dict per layer in execution order (see ``models/transformer.py``).  A
-    ``moe`` layer's router (reps, D, E) and expert stacks (reps, E, ., .)
-    unstack like the other leaves; ``frontend_proj`` is carried as it is."""
-    from repro_torch.models.transformer import _check_kind
-
+    dict per layer in execution order (see ``models/transformer.py``).
+    Every kind's leaves unstack alike (a ``moe`` layer's router (reps, D,
+    E) and expert stacks (reps, E, ., .), the SSM kinds' matrices and
+    vectors).  ``repro``'s segments have no entry for a ``shared_attn``
+    position (its ``pos{i}`` keys skip it); the unstacked top-level
+    ``shared`` is converted once and every ``shared_attn`` layer is that
+    dict.  ``frontend_proj`` is carried as it is."""
     dev = resolve_device(device)
     out = {name: _t(tree[name], np.float32, dev)
            for name in ("embed", "final_norm", "lm_head", "frontend_proj")
            if name in tree}
+    if "shared" in tree:
+        out["shared"] = {n: _t(a, np.float32, dev)
+                         for n, a in tree["shared"].items()}
     layers = []
     for si, seg in enumerate(cfg.segments):
         for r in range(seg.reps):
             for pi, spec in enumerate(seg.layers):
-                _check_kind(spec)
+                if spec.kind == "shared_attn":
+                    layers.append(out["shared"])
+                    continue
                 leaves = tree[f"seg{si}"][f"pos{pi}"]
                 layers.append({n: _t(a[r], np.float32, dev)
                                for n, a in leaves.items()})
     out["layers"] = layers
     return out
+
+
+def lm_cache_from_numpy(tree, cfg, *, device="cuda") -> list[dict]:
+    """The numpy leaves of a ``repro`` decode cache (``init_cache`` or a
+    ``decode_forward`` result), stacked on ``reps`` per segment position
+    (``shared_attn`` positions included: each invocation has its own K/V),
+    -> the port's cache: one dict per layer in execution order, each leaf
+    in its own dtype (an int8 cache's {"q", "s"} dicts kept)."""
+    dev = resolve_device(device)
+
+    def take(node, r):
+        if isinstance(node, dict):
+            return {n: take(a, r) for n, a in node.items()}
+        return torch.from_numpy(np.array(node[r])).to(dev)
+
+    return [take(tree[f"seg{si}"][f"pos{pi}"], r)
+            for si, seg in enumerate(cfg.segments)
+            for r in range(seg.reps)
+            for pi in range(len(seg.layers))]

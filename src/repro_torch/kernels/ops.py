@@ -29,7 +29,7 @@ from repro_torch.kernels import ref
 KERNELS = ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
            "sparse_sim", "esicp_gather_ta", "sparse_sim_square", "doc_sketch",
            "sketch_sim", "flash_attention", "segment_update_init",
-           "routed_scan")
+           "routed_scan", "slstm_scan")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN = dict.fromkeys(KERNELS, 0)
 
@@ -335,6 +335,35 @@ def routed_scan(ids, vals, nnz, means_t, cells, starts, sizes, cmax: int):
                     assign, best, scored)
         LAUNCHES["routed_scan"] += 1
     return assign, best, scored
+
+
+def slstm_scan(gates, c0, n0, m0):
+    """The sLSTM scan of gates (B, S, 4D) float32 (z | i | f | o) from the
+    state (c0, n0, m0) (B, D) float32 -> (hs (B, S, D), c, n, m), all
+    float32 and new tensors.  On the card one launch for any S; S = 0
+    launches nothing and returns copies of the state."""
+    _need(gates, "gates", torch.float32, 3)
+    b, s, d4 = gates.shape
+    if d4 % 4:
+        raise ValueError(f"gates' last dim {d4} is not 4·D")
+    for name, t in (("c0", c0), ("n0", n0), ("m0", m0)):
+        _need(t, name, torch.float32, 2)
+        if t.shape != (b, d4 // 4):
+            raise ValueError(f"{name} must be {(b, d4 // 4)}, got "
+                             f"{tuple(t.shape)}")
+    if not _on_cuda(gates, c0, n0, m0):
+        PLAIN["slstm_scan"] += 1
+        return ref.slstm_scan(gates, c0, n0, m0)
+    from repro_torch.kernels import slstm_scan as kern
+
+    _contiguous(("gates", gates), ("c0", c0), ("n0", n0), ("m0", m0))
+    hs = torch.empty((b, s, d4 // 4), dtype=torch.float32, device=gates.device)
+    if not (s and b and d4):
+        return hs, c0.clone(), n0.clone(), m0.clone()
+    c, n, m = (torch.empty_like(c0) for _ in range(3))
+    kern.launch(gates, c0, n0, m0, hs, c, n, m)
+    LAUNCHES["slstm_scan"] += 1
+    return hs, c, n, m
 
 
 def doc_sketch(ids, vals, dim: int, sketch_size: int):

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels: the clustering kernels in gather
-form, and banded-causal attention.
+form, banded-causal attention and the sLSTM scan.
 
 They are the CPU path (``kernels/ops.py`` sends CPU tensors here) and the
 oracle ``chip_smoke.py`` holds each CUDA kernel against on the card.  None
@@ -23,7 +23,9 @@ for bit where the kernel's order is fixed:
 * ``rho_gather`` — each row sums its products in :func:`window_sum`'s
   order over its full padded width (``repro``'s float32 order); a row of
   at most 32 slots in :func:`short_row_sum`'s order of fused
-  multiply-adds, which the kernel takes with ``__fmaf_rn``.
+  multiply-adds, which the kernel takes with ``__fmaf_rn``;
+* ``slstm_scan`` — a Python loop over time, each step in the kernel's
+  order of rounded elementwise operations.
 
 ``flash_attention`` is the exception: it materialises the (Sq, Sk) scores
 and softmax, as ``repro/kernels/ref.py:flash_attention`` does, and so
@@ -369,3 +371,31 @@ def flash_attention(q, k, v, window: int = -1, sk_real: int | None = None):
     probs = torch.softmax(s, dim=-1)
     probs = torch.where(mask.any(dim=1)[None, :, None], probs, 0.0)
     return torch.einsum("bqk,bkd->bqd", probs, v)
+
+
+def slstm_scan(gates, c0, n0, m0):
+    """The sLSTM recurrence over t = 0..S-1 of gates (B, S, 4D) float32,
+    laid out z | i | f | o, from the state (c0, n0, m0) (B, D) ->
+    (hs (B, S, D), c, n, m), ``repro``'s ``slstm_block`` ``step``:
+
+        m' = max(f + m, i);  i_e = exp(i - m');  f_e = exp(f + m - m')
+        c = f_e·c + i_e·tanh(z);  n = f_e·n + i_e
+        h = sigmoid(o)·c / max(n, 1)
+
+    The sigmoid is written out as 1 / (1 + exp(-o)), the form the kernel
+    repeats, so neither depends on how torch computes its own sigmoid."""
+    b, s, d4 = gates.shape
+    z, i, f, o = gates.split(d4 // 4, dim=-1)
+    c, n, m = c0, n0, m0
+    hs = torch.empty((b, s, d4 // 4), dtype=torch.float32, device=gates.device)
+    for t in range(s):
+        fm = f[:, t] + m
+        m_new = torch.maximum(fm, i[:, t])
+        i_e = torch.exp(i[:, t] - m_new)
+        f_e = torch.exp(fm - m_new)
+        c = f_e * c + i_e * torch.tanh(z[:, t])
+        n = f_e * n + i_e
+        sig = torch.reciprocal(1.0 + torch.exp(-o[:, t]))
+        hs[:, t] = sig * c / torch.clamp(n, min=1.0)
+        m = m_new
+    return hs, c.clone(), n.clone(), m.clone()

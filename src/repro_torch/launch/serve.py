@@ -3,7 +3,8 @@ port's counterpart of ``repro.launch.serve``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --batch 4
 
-Runs on the card unless ``--device cpu``; without a GPU it raises.
+``--arch`` is any of the ten archs of ``configs.registry``.  Runs on the
+card unless ``--device cpu``; without a GPU it raises.
 Parameters and prompts are drawn from seeds 0 and 1 with torch's
 generator, so the tokens are not ``repro``'s (its keys are JAX's).
 """

@@ -7,8 +7,8 @@ the port runs its layers in the same order as a Python loop
 (:mod:`repro_torch.models.transformer`).
 
 Layer kinds: 'attn' (attention + dense MLP), 'moe' (attention + MoE MLP),
-'mamba2', 'mlstm', 'slstm', 'shared_attn'.  The port runs 'attn' and
-'moe'; the others raise in the transformer.
+'mamba2', 'mlstm', 'slstm', 'shared_attn' (zamba2: attention + dense MLP
+with one parameter set reused at every invocation).
 """
 from __future__ import annotations
 

@@ -7,8 +7,11 @@ CUDA graphs are later work).
   decode_fn(params, cache, token (B, 1), pos)    -> (logits (B, 1, V), cache)
 
 The prefill runs every attention layer through the flash-attention kernel
-(:func:`repro_torch.kernels.ops.flash_attention`).  The decode path updates
-the KV caches in place.
+(:func:`repro_torch.kernels.ops.flash_attention`) and every sLSTM layer
+through the sLSTM scan (:func:`repro_torch.kernels.ops.slstm_scan`); with
+mamba2 or mLSTM layers its S must be a multiple of ``cfg.ssm_chunk``.  The
+decode path updates each layer's cache dict in place: the KV caches, and
+the SSM states (an sLSTM step is one ``slstm_scan`` launch of S = 1).
 """
 from __future__ import annotations
 

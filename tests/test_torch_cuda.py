@@ -40,8 +40,12 @@ accumulating launch runs), and two spawned gloo ranks sharing the card
 at (1, 2) and (2, 1); and the LM path: flash_attention at head dims it
 pads (12, 96, 200), each attention-family smoke config on the card
 against the CPU in float32 (prefill logits, greedy tokens, with a
-frontend prefix for musicgen and chameleon) and the int8 KV cache.  This
-file imports neither JAX nor ``repro``."""
+frontend prefix for musicgen and chameleon) and the int8 KV cache; the
+sLSTM scan against its plain version bit for bit (xlstm-125m's prefill
+and decode widths, D not a multiple of 32, gates × 10, a state carried
+over two launches, S not a multiple of the kernel's 16 steps ahead) and
+the two SSM smoke configs (xlstm, zamba2) on the card against the CPU.
+This file imports neither JAX nor ``repro``."""
 import numpy as np
 import pytest
 
@@ -693,12 +697,13 @@ def test_flash_attention_operands_the_kernel_cannot_take_raise(dev):
         ops.flash_attention(wide, wide, wide)
 
 
-@pytest.mark.parametrize("hd", [12, 96, 200])
+@pytest.mark.parametrize("hd", [12, 80, 96, 200])
 @pytest.mark.parametrize("window", [-1, 48])
 def test_flash_attention_pads_any_head_dim(dev, hd, window):
     """A head dim without an instantiation runs on the next one, zero
     columns added and sliced off, scaled by 1/sqrt(hd): within 2e-5 of
-    the plain version at hd (granite's smoke config has hd 12)."""
+    the plain version at hd (granite's smoke config has hd 12, zamba2-2.7b
+    hd 80)."""
     gen = torch.Generator(device=dev).manual_seed(hd + window)
     q, k, v = (torch.randn((3, 150, hd), generator=gen, device=dev)
                for _ in range(3))
@@ -1409,3 +1414,105 @@ def test_mesh_two_ranks_gloo_on_one_card(dev, shape, tmp_path):
         assert all(v == 0 for v in got["plain"].values()), got["plain"]
         assert got["launches"]["esicp_gather"] > 0
         _mesh_same_as_lloyd(got, want, exact=shape == (1, 2))
+
+
+SLSTM_SHAPES = [(2, 4096, 768, 1.0, False), (4, 1, 768, 1.0, True),
+                (3, 200, 100, 1.0, True), (2, 4096, 768, 10.0, False),
+                (5, 37, 33, 3.0, True)]
+
+
+def _slstm_inputs(dev, b, s, d, scale, cached, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gates = torch.randn((b, s, 4 * d), generator=gen, device=dev) * scale
+    if cached:
+        state = (torch.randn((b, d), generator=gen, device=dev),
+                 torch.rand((b, d), generator=gen, device=dev) * 4 + 0.5,
+                 torch.randn((b, d), generator=gen, device=dev) * 3)
+    else:
+        zero = torch.zeros((b, d), device=dev)
+        state = (zero, zero, torch.full((b, d), -1e30, device=dev))
+    return gates, state
+
+
+@pytest.mark.parametrize("b,s,d,scale,cached", SLSTM_SHAPES)
+def test_slstm_scan_equals_plain(dev, b, s, d, scale, cached):
+    """One launch, hs and the final (c, n, m) bit for bit against the
+    plain loop on the card; the state carried over S/2 + S/2 launches
+    equals one launch bit for bit."""
+    gates, state = _slstm_inputs(dev, b, s, d, scale, cached, seed=b * s + d)
+    ops.reset_counts()
+    got = ops.slstm_scan(gates, *state)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["slstm_scan"] == 1 and ops.PLAIN["slstm_scan"] == 0
+    want = ref.slstm_scan(gates, *state)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+    if s > 1:
+        half = s // 2
+        first = ops.slstm_scan(gates[:, :half].contiguous(), *state)
+        second = ops.slstm_scan(gates[:, half:].contiguous(), *first[1:])
+        assert torch.equal(torch.cat([first[0], second[0]], dim=1), got[0])
+        for g, w in zip(second[1:], got[1:]):
+            assert torch.equal(g, w)
+
+
+def test_slstm_scan_operands_the_kernel_cannot_take_raise(dev):
+    gates = torch.zeros((2, 6, 4 * 8), device=dev)
+    z = torch.zeros((2, 8), device=dev)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.slstm_scan(gates, z.cpu(), z, z)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.slstm_scan(gates.transpose(0, 1).contiguous().transpose(0, 1),
+                       z, z, z)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
+def test_ssm_smoke_archs_on_card_equal_cpu(dev, arch):
+    """Float32 on both: prefill logits within 1e-4, decode logits step by
+    step within 1e-4, the states after the prompt within 1e-5 and greedy
+    tokens identical; the card's prefill launched flash_attention once per
+    shared_attn invocation and slstm_scan once per sLSTM layer, its decode
+    slstm_scan once per sLSTM layer a step, and no plain version ran."""
+    from repro_torch.models.transformer import (decode_forward, init_cache,
+                                                layer_specs)
+    from repro_torch.serve.lm import ServeLoop, make_prefill_fn
+
+    cfg, params = _smoke_pair(arch, dev)
+    assert all(lp is params["cuda"]["shared"] for lp, sp in
+               zip(params["cuda"]["layers"], layer_specs(cfg))
+               if sp.kind == "shared_attn")
+    kinds = [sp.kind for sp in layer_specs(cfg)]
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 48), generator=gen)
+    f32 = torch.float32
+    lg = {}
+    for where in ("cuda", "cpu"):
+        ops.reset_counts()
+        lg[where] = make_prefill_fn(cfg, compute_dtype=f32)(params[where],
+                                                             toks.to(where))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["flash_attention"] == kinds.count("shared_attn")
+            assert ops.LAUNCHES["slstm_scan"] == kinds.count("slstm")
+            assert not any(ops.PLAIN.values())
+    torch.testing.assert_close(lg["cuda"].cpu(), lg["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    caches = {w: init_cache(cfg, 2, 16, device=w, compute_dtype=f32)
+              for w in ("cuda", "cpu")}
+    ops.reset_counts()
+    for pos in range(12):
+        step = {w: decode_forward(params[w], caches[w],
+                                  toks[:, pos:pos + 1].to(w), pos, cfg,
+                                  compute_dtype=f32)[0]
+                for w in ("cuda", "cpu")}
+        torch.testing.assert_close(step["cuda"].cpu(), step["cpu"],
+                                   rtol=1e-4, atol=1e-4)
+    assert ops.LAUNCHES["slstm_scan"] == 12 * kinds.count("slstm")
+    for got, want in zip(caches["cuda"], caches["cpu"]):
+        for name in got:
+            torch.testing.assert_close(got[name].cpu(), want[name],
+                                       rtol=1e-5, atol=1e-5)
+    out = {w: ServeLoop(cfg, params[w], max_len=32, compute_dtype=f32).generate(
+        toks[:, :8].to(w), n_new=16) for w in ("cuda", "cpu")}
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])

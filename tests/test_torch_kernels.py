@@ -565,6 +565,8 @@ def test_ops_dispatch_cpu_to_plain_versions():
     i32 = lambda *x: torch.tensor(x, dtype=torch.int32)
     ops.routed_scan(ti, tv, _full(ids), tm, ta[:, None] % 2, i32(0, 20),
                     i32(20, 17), 20)
+    z = torch.zeros((2, 3))
+    ops.slstm_scan(torch.ones((2, 5, 12)), z, z, z - 1e30)
     assert ops.PLAIN == dict.fromkeys(ops.KERNELS, 1)
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
     ops.reset_counts()

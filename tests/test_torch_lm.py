@@ -225,27 +225,14 @@ def test_configs_match_repro():
     assert gemma3_1b.config().n_params() == 999_812_736
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-2.7b"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        registry.get_config(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        registry.smoke_config(arch)
-
-
-def test_unported_layer_kinds_and_cache_raise():
+def test_unknown_arch_kind_and_kv_dtype_raise():
     from repro_torch.models.transformer import layer_shapes
 
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("gpt-9")
-    for arch in ("xlstm-125m", "zamba2-2.7b"):
-        cfg = _port_config(repro_smoke(arch))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     cfg = gemma3_1b.smoke_config()
-    for kind in ("mamba2", "mlstm", "slstm", "shared_attn"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            layer_shapes(cfg, kind)
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        layer_shapes(cfg, "rwkv")
     cfg = dataclasses.replace(cfg, kv_dtype="fp8")
     with pytest.raises(ValueError, match="kv_dtype"):
         init_cache(cfg, 1, 8, device="cpu")
