@@ -31,10 +31,15 @@ each of which fails the run on any error:
              (``slstm_scan``) against its plain version, bit for bit or
              within 1e-6, at xlstm-125m's prefill (B 2, S 4096, D 768) and
              decode step (B 4, S 1, from a cached state), at (3, 200, 100)
-             (D not a multiple of 32) and with gates × 10, and two launches
-             of S/2 with the state carried equal to one launch bit for
-             bit; its time beside the plain loop's and the bound, its
-             registers and spills from the compiler's report;
+             (D not a multiple of 32), with gates × 10, at S 16,384 and at
+             the edges of the kernel's ring of T-step tiles (S = T - 1, T,
+             T + 1, 3T + 5; D not a multiple of its channel group; B·D
+             below one group) and of its short-scan walk (the walk's last
+             S, the tiles' first), each with two launches of S/2 with the
+             state carried equal to one launch bit for bit; its time
+             beside the plain loop's and the bound, its geometry (blocks,
+             warps, T, shared memory a block), registers and spills from
+             the compiler's report;
 4. small   — small fits on the card and on the CPU (plain versions), all
              nine algorithm modes (ES-ICP to convergence, the other eight
              to ``--small-iter`` iterations), and a classify: identical
@@ -734,8 +739,28 @@ def kernel_phase(torch, docs, seed: int):
 SLSTM_CASES = (("xlstm-125m prefill", 2, 4096, 768, 1.0, False),
                ("xlstm-125m decode step", 4, 1, 768, 1.0, True),
                ("D not a multiple of 32", 3, 200, 100, 1.0, True),
-               ("gates x10", 2, 4096, 768, 10.0, False))
+               ("gates x10", 2, 4096, 768, 10.0, False),
+               ("S 16,384", 2, 16384, 768, 1.0, False))
 SLSTM_TOL = 1e-6
+
+
+def slstm_cases(tile: int, channels: int, walk: int) -> tuple:
+    """SLSTM_CASES and the kernel's edges for its tile of ``tile`` steps,
+    blocks of ``channels`` channels and its walk below ``walk`` steps: the
+    last walk and the first tiles; S = T - 1, T, T + 1 and 3T + 5; D not a
+    multiple of the group (D % 4 == 0: 16-byte copies of a partial group);
+    B·D below one group, D % 4 != 0 (4-byte copies)."""
+    t = tile
+    return SLSTM_CASES + (
+        ("S = W - 1, the walk's last", 4, walk - 1, 768, 1.0, True),
+        ("S = W, the tiles' first", 4, walk, 768, 1.0, True),
+        ("S = T - 1", 2, t - 1, 768, 1.0, False),
+        ("S = T", 2, t, 768, 1.0, True),
+        ("S = T + 1", 2, t + 1, 768, 1.0, True),
+        ("S = 3T + 5", 2, 3 * t + 5, 768, 3.0, True),
+        (f"D {channels + 4}, not a multiple of the group", 3, 3 * t + 5,
+         channels + 4, 1.0, True),
+        ("B·D 7, below one group", 1, t + 1, 7, 1.0, True))
 
 
 def slstm_state(torch, b: int, d: int, gen, cached: bool):
@@ -763,15 +788,18 @@ def slstm_compare(torch, what: str, got, want) -> tuple[float, bool]:
 
 
 def slstm_rows(torch, seed: int) -> dict:
-    """slstm_scan against its plain version at SLSTM_CASES, the split-state
-    check, and its times beside the plain loop's and the bound."""
+    """slstm_scan against its plain version at ``slstm_cases``, each with
+    the split-state check, and its times beside the plain loop's and the
+    bound."""
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.slstm_scan import THREADS
+    from repro_torch.kernels import slstm_scan as kern
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    smem, per_sm = kern.resources()
     errs, bitwise, timed = [], True, {}
-    for what, b, s, d, scale, cached in SLSTM_CASES:
+    for what, b, s, d, scale, cached in slstm_cases(kern.TILE, kern.CHANNELS,
+                                                    kern.WALK_BELOW):
         gates = torch.randn((b, s, 4 * d), generator=gen, device=dev) * scale
         state = slstm_state(torch, b, d, gen, cached)
         ops.reset_counts()
@@ -782,19 +810,21 @@ def slstm_rows(torch, seed: int) -> dict:
                                   ref.slstm_scan(gates, *state))
         errs.append(err)
         bitwise = bitwise and same
-        log(f"  slstm_scan {what} (B {b}, S {s}, D {d}, gates x{scale:g}): "
-            f"{'bit for bit' if same else f'max abs err {err:.3g}'} against "
-            f"the plain version; {b * -(-d // THREADS)} one-warp blocks")
-        if what == "xlstm-125m prefill":
+        carried = ""
+        if s > 1:
             half = s // 2
             first = ops.slstm_scan(gates[:, :half].contiguous(), *state)
             second = ops.slstm_scan(gates[:, half:].contiguous(), *first[1:])
             split = (torch.cat([first[0], second[0]], dim=1), *second[1:])
             require(all(torch.equal(a, w) for a, w in zip(split, got)),
-                    "slstm_scan: S/2 + S/2 with the state carried differs "
-                    "from one launch over S")
-            log(f"  slstm_scan {what}: S/2 + S/2 with the state carried "
-                f"equals one launch bit for bit")
+                    f"slstm_scan {what}: S/2 + S/2 with the state carried "
+                    f"differs from one launch over S")
+            carried = "; S/2 + S/2 with the state carried equals one launch"
+        log(f"  slstm_scan {what} (B {b}, S {s}, D {d}, gates x{scale:g}): "
+            f"{'bit for bit' if same else f'max abs err {err:.3g}'} against "
+            f"the plain version{carried}; {kern.blocks(b, d, s)} blocks "
+            f"({'walk' if s < kern.WALK_BELOW else 'tiles'})")
+        if what == "xlstm-125m prefill":
             timed["prefill"] = (gates, state, b, s, d)
         if what == "xlstm-125m decode step":
             timed["decode"] = (gates, state)
@@ -805,7 +835,9 @@ def slstm_rows(torch, seed: int) -> dict:
     # 19 float operations a channel a step (adds, max, exp, tanh, the
     # sigmoid's exp, add and quotient, products, the output's quotient)
     bound = bound_ms(n_bytes, 19 * b * s * d)
-    (res,) = _build.ptxas_report("slstm_scan")
+    report = _build.ptxas_report("slstm_scan")
+    res = next(r for r in report if "slstm_scan_kernel" in r["kernel"])
+    walk = next(r for r in report if "slstm_walk_kernel" in r["kernel"])
     step_gates, step_state = timed["decode"]
     step_ms = time_ms(torch, lambda: ops.slstm_scan(step_gates, *step_state))
     row = dict(max_abs_err=max(errs),
@@ -815,17 +847,26 @@ def slstm_rows(torch, seed: int) -> dict:
                library_ms=None, bound=bound,
                extra=dict(bitwise=bitwise, dependent_steps=s,
                           ns_per_step=ms * 1e6 / s, decode_step_ms=step_ms,
-                          blocks=b * -(-d // THREADS),
+                          blocks=kern.blocks(b, d, s), warps=kern.WARPS,
+                          tile=kern.TILE, smem_bytes=smem,
                           registers=res["registers"],
-                          spill_bytes=res["spill_stores"] + res["spill_loads"]))
+                          spill_bytes=res["spill_stores"] + res["spill_loads"],
+                          walk_below=kern.WALK_BELOW,
+                          walk_registers=walk["registers"],
+                          walk_spill_bytes=walk["spill_stores"]
+                          + walk["spill_loads"]))
     log(f"  slstm_scan (B {b}, S {s}, D {d}): {ms:.3f} ms, "
         f"{row['extra']['ns_per_step']:.1f} ns a step over {s} dependent "
         f"steps; plain loop {row['plain_ms']:.1f} ms; bound {bound[0]:.4f} ms"
-        f" by {bound[1]} (not reachable by a sequential scan); decode step "
-        f"(B 4, S 1) {step_ms:.4f} ms; {row['extra']['blocks']} one-warp "
-        f"blocks (from the grid; where they land is not read)")
-    log(f"  slstm_scan_kernel: {res['registers']} registers, spill stores "
-        f"{res['spill_stores']} B, loads {res['spill_loads']} B (ptxas)")
+        f" by {bound[1]}; decode step (B 4, S 1, the walk) {step_ms:.4f} "
+        f"ms; {kern.blocks(b, d, s)} blocks of {kern.WARPS} warps (two chain "
+        f"warps, {kern.WARPS - 2} workers) over {kern.CHANNELS} channels, "
+        f"tiles of {kern.TILE} steps, {smem} B of shared memory a block, "
+        f"{per_sm} block(s) an SM (from the grid and the occupancy query; "
+        f"where they land is not read)")
+    for r in (res, walk):
+        log(f"  {r['kernel']}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} B, loads {r['spill_loads']} B (ptxas)")
     return row
 
 
@@ -2937,7 +2978,8 @@ SPANS = {"_moe_dispatch": ("layers", "moe dispatch/combine",
                           "recurrence elementwise")}
 # Kernels launched through ctypes (no op owns them), grouped by name.
 CTYPES_KERNELS = {"flash_kernel": "flash_attention",
-                  "slstm_scan_kernel": "slstm_scan"}
+                  "slstm_scan_kernel": "slstm_scan",
+                  "slstm_walk_kernel": "slstm_scan"}
 MATMUL_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
               "aten::matmul", "aten::linear", "aten::einsum"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::to", "aten::clone",

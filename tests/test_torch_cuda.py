@@ -43,7 +43,11 @@ against the CPU in float32 (prefill logits, greedy tokens, with a
 frontend prefix for musicgen and chameleon) and the int8 KV cache; the
 sLSTM scan against its plain version bit for bit (xlstm-125m's prefill
 and decode widths, D not a multiple of 32, gates × 10, a state carried
-over two launches, S not a multiple of the kernel's 16 steps ahead) and
+over two launches; at the ring's edges S = T - 1, T, T + 1, 3T + 5 for
+the kernel's tile of T steps, and 16,384; the last S of the short-scan
+walk and the first of the tiles; D not a multiple of the
+channel group, B·D below one group, D not a multiple of 4 and gates off
+16-byte alignment, both copied 4 bytes at a time) and
 the two SSM smoke configs (xlstm, zamba2) on the card against the CPU.
 This file imports neither JAX nor ``repro``."""
 import numpy as np
@@ -52,6 +56,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.slstm_scan import (  # noqa: E402
+    TILE as SLSTM_TILE, WALK_BELOW as SLSTM_WALK)
 
 pytestmark = pytest.mark.cuda
 
@@ -1416,9 +1422,21 @@ def test_mesh_two_ranks_gloo_on_one_card(dev, shape, tmp_path):
         _mesh_same_as_lloyd(got, want, exact=shape == (1, 2))
 
 
+_T = SLSTM_TILE
 SLSTM_SHAPES = [(2, 4096, 768, 1.0, False), (4, 1, 768, 1.0, True),
                 (3, 200, 100, 1.0, True), (2, 4096, 768, 10.0, False),
-                (5, 37, 33, 3.0, True)]
+                (5, 37, 33, 3.0, True),
+                # the ring's edges: a tile less one step, one tile, one
+                # step more, three tiles and 5 steps, 16,384 steps
+                (2, _T - 1, 768, 1.0, False), (2, _T, 768, 1.0, True),
+                (2, _T + 1, 768, 1.0, True), (2, 3 * _T + 5, 768, 3.0, True),
+                (2, 16384, 768, 1.0, False),
+                # D not a multiple of the channel group; B·D below one
+                # group (and D not a multiple of 4: 4-byte copies)
+                (3, 3 * _T + 5, 100, 1.0, True), (1, _T + 1, 7, 1.0, True),
+                # the walk's last S and the tiles' first
+                (4, SLSTM_WALK - 1, 768, 1.0, True),
+                (4, SLSTM_WALK, 768, 1.0, True)]
 
 
 def _slstm_inputs(dev, b, s, d, scale, cached, seed):
@@ -1455,6 +1473,24 @@ def test_slstm_scan_equals_plain(dev, b, s, d, scale, cached):
         assert torch.equal(torch.cat([first[0], second[0]], dim=1), got[0])
         for g, w in zip(second[1:], got[1:]):
             assert torch.equal(g, w)
+
+
+def test_slstm_scan_gates_off_16_byte_alignment(dev):
+    """Gates 4 bytes past a 16-byte boundary (a contiguous view at an
+    offset) take the 4-byte copies: bit for bit as from aligned gates."""
+    b, s, d = 2, 3 * SLSTM_TILE + 5, 96
+    gates, state = _slstm_inputs(dev, b, s, d, 1.0, True, seed=11)
+    buf = torch.empty((gates.numel() + 1,), device=dev)
+    off = buf[1:].view(gates.shape)
+    off.copy_(gates)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    ops.reset_counts()
+    got = ops.slstm_scan(off, *state)
+    assert ops.LAUNCHES["slstm_scan"] == 1
+    for g, w in zip(got, ops.slstm_scan(gates, *state)):
+        assert torch.equal(g, w)
+    for g, w in zip(got, ref.slstm_scan(gates, *state)):
+        assert torch.equal(g, w)
 
 
 def test_slstm_scan_operands_the_kernel_cannot_take_raise(dev):

@@ -572,6 +572,33 @@ def test_ops_dispatch_cpu_to_plain_versions():
     ops.reset_counts()
 
 
+def test_slstm_scan_geometry_matches_the_cuda_source():
+    """CHANNELS, WARPS, TILE and WALK_BELOW of kernels/slstm_scan.py are the
+    kChannels, kWarps, kTile and kWalkBelow of csrc/slstm_scan.cu, each
+    defined there once: chip_smoke.py computes the grid, and the card tests
+    the ring's edge cases and the switch between the walk and the tiles,
+    from the Python side."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import slstm_scan as kern
+
+    src = (Path(kern.__file__).resolve().parent.parent / "csrc"
+           / "slstm_scan.cu").read_text()
+    got = {}
+    for name in ("kChannels", "kWarps", "kTile", "kWalkBelow"):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert len(found) == 1, (name, found)
+        got[name] = int(found[0])
+    assert got == {"kChannels": kern.CHANNELS, "kWarps": kern.WARPS,
+                   "kTile": kern.TILE, "kWalkBelow": kern.WALK_BELOW}
+    s = kern.WALK_BELOW
+    assert kern.blocks(2, 768, s) == 2 * 768 // kern.CHANNELS
+    assert kern.blocks(3, kern.CHANNELS + 1, s) == 6
+    assert kern.blocks(1, 7, s) == 1
+    assert kern.blocks(4, 768, s - 1) == 4 * 768 // 32
+
+
 def test_ops_validate_operands():
     ids, vals, means, assign = _inputs(8, 4, 30, 5, seed=8)
     with pytest.raises(TypeError, match="ids must be"):
