@@ -47,7 +47,8 @@ each of which fails the run on any error:
              history (Mult, |Z|, changed, n_moving, t_th);
 5. main    — ``repro_torch.cluster.fit`` (ES-ICP, k 10,000, EstParams at
              iterations 1–2) and ``classify_docs`` on a synthetic corpus at
-             the NYT widths of ``configs/nyt1m.py`` (vocab 495,126, nt_mean
+             the NYT widths of ``src/repro_torch/configs/nyt1m.py``
+             (``config()``: vocab 495,126, nt_mean
              225.76), n_docs cut from 1,285,944 to ``--n-docs``.  Launch
              counters are zeroed just before and read just after: every
              kernel of the path must have launched and no plain version may
@@ -254,7 +255,33 @@ attention-family archs of ``configs/registry.py``, then the two SSM archs):
              chunked recurrence's products and elementwise passes,
              slstm_scan, flash_attention, other matmuls, casts and copies)
              with the idle share, for one prefill and for 7 decode steps;
-             peak memory.
+             peak memory;
+17. train — (a) the backward kernels alone: flash_attention_bwd through
+             ``ops.flash_attention``'s autograd Function against float64
+             and float32 autograd through the plain version at gemma3's
+             (8, 4096, 256), window 512 and full causal, at (``--lm-batch``
+             × 32, 4096, 80 → 128) and at (3, 200, 136, 64) window 48 (rows
+             with no live key: dq exactly 0), each gradient's max abs error
+             at most 2× the plain float32 one's and 1e-4 of its largest
+             magnitude, two runs bit for bit; slstm_scan_bwd against the
+             plain reverse loop bit for bit (or within 1e-6 of the largest
+             gradient, named) at (2, 4096, 768) from the zero state, S 1
+             and D 100 from cached states, and S/2 + S/2 with the adjoints
+             carried equal to one launch; times from CUDA events beside the
+             plain backward, sdpa's float32 backward (flash) and the bounds,
+             registers, spills (none allowed) and shared memory; (b) every
+             smoke config's loss and gradients in float32 on the card,
+             kernels (two forward launches a layer with remat, one
+             backward) against the plain versions, the loss within 1e-4 and
+             every gradient leaf within F32_PARITY_TOL of its largest
+             magnitude, and one ``make_train_step``; (c) gemma3-1b (26
+             layers) and xlstm-125m at full width, ``--lm-batch`` ×
+             ``--lm-seq``, bf16, 3 AdamW steps each through
+             ``launch/train.py``'s ``main``: finite losses and gradient
+             norms, only kernel launches (remat's count) and no plain call,
+             s a step, tokens/s and peak memory; then one float32 loss and
+             gradient of each (gemma3-1b cut to its first 6 layers, one
+             global), kernels against plain as in (b).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -263,6 +290,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import statistics
@@ -279,9 +307,8 @@ ROOT = Path(__file__).resolve().parent
 # lo·hi + hi·lo + hi·hi).
 TF32_PASSES = 3
 
-NYT_VOCAB = 495_126
-NYT_NT_MEAN = 225.76
-NYT_K = 10_000
+# The NYT widths, set by main() from src/repro_torch/configs/nyt1m.py.
+NYT_VOCAB = NYT_NT_MEAN = NYT_K = None
 BATCH = 4096
 STREAM_CHUNK = 32_768
 
@@ -303,6 +330,10 @@ REPLACES = {
     "routed_scan": "src/repro/cluster/classify.py:114",
     # repro's sLSTM is plain JAX (a lax.scan over time), no Pallas kernel.
     "slstm_scan": "src/repro/models/ssm.py:156",
+    # repro has no backward kernel: JAX differentiates its jnp attention
+    # (_attn_core) and the sLSTM's lax.scan; these are those gradients.
+    "flash_attention_bwd": "src/repro/models/layers.py:120",
+    "slstm_scan_bwd": "src/repro/models/ssm.py:156",
 }
 SOURCES = {
     "esicp_gather": "src/repro_torch/csrc/gather.cu",
@@ -318,6 +349,8 @@ SOURCES = {
     "segment_update_init": "src/repro_torch/csrc/segment_update.cu",
     "routed_scan": "src/repro_torch/csrc/routed_scan.cu",
     "slstm_scan": "src/repro_torch/csrc/slstm_scan.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    "slstm_scan_bwd": "src/repro_torch/csrc/slstm_scan_bwd.cu",
 }
 # The kernels each main-path run must launch.
 PATH_KERNELS = {
@@ -2979,7 +3012,9 @@ SPANS = {"_moe_dispatch": ("layers", "moe dispatch/combine",
 # Kernels launched through ctypes (no op owns them), grouped by name.
 CTYPES_KERNELS = {"flash_kernel": "flash_attention",
                   "slstm_scan_kernel": "slstm_scan",
-                  "slstm_walk_kernel": "slstm_scan"}
+                  "slstm_walk_kernel": "slstm_scan",
+                  "flash_bwd_": "flash_attention_bwd",
+                  "slstm_bwd_kernel": "slstm_scan_bwd"}
 MATMUL_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
               "aten::matmul", "aten::linear", "aten::einsum"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::to", "aten::clone",
@@ -3246,6 +3281,502 @@ def lm_family_phase(torch, title: str, entries, seed: int, batch: int,
         f"launches { {k: v for k, v in first.items() if v} }; "
         f"flash_attention launches in all {total}")
     return first, total
+
+
+# ---------------------------------------------------------------------------
+# Training (phase 17): the two backward kernels alone, one train step of
+# every smoke config kernels against plain, then launch/train.py at full
+# width.
+# ---------------------------------------------------------------------------
+
+# (what, BH, Sq, Sk, hd, window): gemma3-1b's shapes at both windows, the
+# hd-80 heads (zamba2's width, padded to 128) and a ragged shape whose rows
+# 183-199 see no key.  The hd-80 BH is --lm-batch × 32.
+FLASH_BWD_CASES = (("gemma3-1b window 512", 8, 4096, 4096, 256, 512),
+                   ("gemma3-1b full causal", 8, 4096, 4096, 256, -1),
+                   ("hd 80 padded to 128", None, 4096, 4096, 80, -1),
+                   ("(3, 200, 136, 64) window 48", 3, 200, 136, 64, 48))
+# A gradient's max abs error against float64 autograd through the plain
+# version: at most this many times the plain float32 gradient's own, and at
+# most FLASH_BWD_REL of the gradient's largest magnitude.
+FLASH_BWD_TIMES = 2.0
+FLASH_BWD_REL = 1e-4
+
+
+def flash_bwd_work(bh: int, sq: int, sk: int, hd: int, window: int):
+    """(bound, TF32 bound, live pairs) of one backward: 10·hd operations a
+    live pair (scores and dP again, dv, dk, dq) against q, k, v, dO, lse
+    read once and dq, dk, dv written once."""
+    pairs = bh * sum(min(i + 1, sk, window) if window >= 0 else min(i + 1, sk)
+                     for i in range(sq))
+    n_bytes = 4 * bh * (4 * sq * hd + 3 * sk * hd + sq)
+    hw = peaks()
+    return (bound_ms(n_bytes, 10 * hd * pairs),
+            bound_ms(n_bytes, TF32_PASSES * 10 * hd * pairs, hw.tf32_flops),
+            pairs)
+
+
+def _plain_attention_grads(torch, q, k, v, do, window: int, dtype,
+                           chunk: int = 4):
+    """Autograd through the plain flash_attention in ``dtype``, a few rows
+    of BH at a time (the (S, S) scores of all rows at once would not fit
+    in float64)."""
+    from repro_torch.kernels import ref
+
+    grads = [torch.empty(t.shape, dtype=dtype, device=t.device)
+             for t in (q, k, v)]
+    for s in range(0, q.shape[0], chunk):
+        e = min(s + chunk, q.shape[0])
+        xs = [t[s:e].to(dtype).requires_grad_() for t in (q, k, v)]
+        out = ref.flash_attention(*xs, window)
+        for g, x in zip(grads, torch.autograd.grad(out, xs, do[s:e].to(dtype))):
+            g[s:e] = x
+    return grads
+
+
+def flash_bwd_case(torch, what, bh, sq, sk, hd, window, gen, timed: bool):
+    """The backward through ``ops.flash_attention``'s autograd Function
+    against float64 and float32 autograd through the plain version; two
+    runs bit for bit; times when ``timed``."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as kern
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn((bh, n, hd), generator=gen, device=dev)
+               for n in (sq, sk, sk))
+    do = torch.randn((bh, sq, hd), generator=gen, device=dev)
+
+    def kernel_grads():
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(*xs, window=window)
+        return torch.autograd.grad(out, xs, do)
+
+    ops.reset_counts()
+    got = kernel_grads()
+    torch.cuda.synchronize()
+    counts = (ops.LAUNCHES["flash_attention"],
+              ops.LAUNCHES["flash_attention_bwd"], sum(ops.PLAIN.values()))
+    require(counts == (1, 1, 0), f"flash_attention_bwd {what}: launches "
+            f"(forward, backward, plain) {counts}, expected (1, 1, 0)")
+    again = kernel_grads()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    require(same, f"flash_attention_bwd {what}: two runs differ")
+    del again
+    want64 = _plain_attention_grads(torch, q, k, v, do, window, torch.float64)
+    want32 = _plain_attention_grads(torch, q, k, v, do, window, torch.float32)
+    errs = {}
+    for name, g, w64, w32 in zip(("dq", "dk", "dv"), got, want64, want32):
+        require(bool(torch.isfinite(g).all()),
+                f"flash_attention_bwd {what}: {name} not finite")
+        err = max_err(torch, g, w64)
+        plain_err = max_err(torch, w32, w64)
+        top = float(w64.abs().max())
+        errs[name] = (err, plain_err, top)
+        require(err <= FLASH_BWD_TIMES * plain_err
+                and err <= FLASH_BWD_REL * top,
+                f"flash_attention_bwd {what}: {name} max abs err {err:.3g} "
+                f"against float64; the plain float32 one {plain_err:.3g}; "
+                f"largest |{name}| {top:.3g}")
+    if sq > sk + max(window, 0) - 1 and window >= 0:
+        dead = sk + window - 1
+        require(bool((got[0][:, dead:] == 0).all()),
+                f"flash_attention_bwd {what}: dq of rows with no live key "
+                f"is not 0")
+    log(f"  flash_attention_bwd {what} (BH {bh}, Sq {sq}, Sk {sk}, hd {hd}, "
+        f"window {window}): max abs err against float64 autograd "
+        + "; ".join(f"{n} {e:.3g} (plain float32 {p:.3g}, largest {t:.3g})"
+                    for n, (e, p, t) in errs.items())
+        + "; two runs bit for bit")
+    del want64, want32, got
+    rec = dict(max_abs_err=max(e for e, _, _ in errs.values()),
+               err_ratio=max(e / max(p, 1e-30) for e, p, _ in errs.values()),
+               rel_err=max(e / max(t, 1e-30) for e, _, t in errs.values()))
+    if not timed:
+        return rec
+    # The backward's launches alone, on the forward's saved tensors.
+    hp = kern.padded_head_dim(hd)
+    qp, kp, vp, dop = (F.pad(t, (0, hp - hd)) for t in (q, k, v, do))
+    o = torch.empty((bh, sq, hp), device=dev)
+    lse = torch.empty((bh, sq), device=dev)
+    scale = 1.0 / math.sqrt(hd)
+    kern.launch(qp, kp, vp, window, sk, o, scale, lse)
+    # The forward with and without the lse output, in turns.
+    fwd = {False: [], True: []}
+    for with_lse in (False, True, True, False):
+        fwd[with_lse].append(time_ms(torch, lambda: kern.launch(
+            qp, kp, vp, window, sk, o, scale, lse if with_lse else None)))
+    dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
+    scratch = torch.empty((2, bh, sq), device=dev)
+    ms = time_ms(torch, lambda: kern.launch_bwd(
+        qp, kp, vp, lse, dop, window, sk, scale, dq, dk, dv, scratch))
+    del o
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_bwd(
+        q, k, v, lse, do, window), reps=3)
+    # scaled_dot_product_attention's float32 backward on the same inputs.
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    if window < 0:
+        lib_out = F.scaled_dot_product_attention(*xs, is_causal=True)
+    else:
+        lib_out = F.scaled_dot_product_attention(
+            *xs, attn_mask=ref.band_mask(sq, sk, window, sk, dev))
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, xs, do, retain_graph=True), reps=3)
+    del xs, lib_out
+    bound, tf32_bound, pairs = flash_bwd_work(bh, sq, sk, hd, window)
+    rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound=bound,
+               tf32_bound_ms=tf32_bound[0], live_pairs=pairs,
+               forward_ms=fwd[False], forward_lse_ms=fwd[True])
+    log(f"    {ms:.3f} ms (plain {plain_ms:.3f} ms, sdpa float32 backward "
+        f"{library_ms:.3f} ms); bound {bound[0]:.4f} ms by {bound[1]} in "
+        f"fp32 on the CUDA cores ({bound[0] / ms:.1%} of it), "
+        f"{tf32_bound[0]:.4f} ms in {TF32_PASSES} TF32 passes; {pairs} live "
+        f"pairs; the forward without lse {fwd[False]} ms, with it "
+        f"{fwd[True]} ms (in turns)")
+    return rec
+
+
+def log_bwd_resources() -> dict:
+    """Registers, spills and shared memory of the two backward kernels
+    (ptxas); fails on a spill."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kern
+
+    out = {}
+    for name in ("flash_attention_bwd", "slstm_scan_bwd"):
+        for r in _build.ptxas_report(name):
+            m = re.search(r"ILi(\d+)E", r["kernel"])
+            extra = ""
+            if name == "flash_attention_bwd" and "flash_bwd_kv" in r["kernel"]:
+                smem, blocks = kern.resources(int(m.group(1)), backward=True)
+                extra = f"; {smem} B shared memory, {blocks} block(s) an SM"
+            log(f"  {r['kernel']}: {r['registers']} registers, spill stores "
+                f"{r['spill_stores']} B, loads {r['spill_loads']} B{extra}")
+            require(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                    f"{r['kernel']} spills")
+            out[r["kernel"]] = r
+    return out
+
+
+def flash_bwd_rows(torch, seed: int, batch: int) -> dict:
+    """flash_attention_bwd at FLASH_BWD_CASES; the row of the kernels line
+    is gemma3-1b's full causal case."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 27)
+    row, by_case = None, {}
+    for what, bh, sq, sk, hd, window in FLASH_BWD_CASES:
+        bh = bh or batch * 32
+        rec = flash_bwd_case(torch, what, bh, sq, sk, hd, window, gen,
+                             timed=sq == sk)
+        torch.cuda.empty_cache()
+        by_case[f"{bh}x{sq}x{sk}x{hd} window {window}"] = {
+            k: (v[0] if k == "bound" else v) for k, v in rec.items()}
+        if what == "gemma3-1b full causal":
+            row = rec
+    row = dict(row)
+    row["max_abs_err"] = max(r["max_abs_err"] for r in by_case.values())
+    row["extra"] = dict(tf32_bound_ms=row.pop("tf32_bound_ms"),
+                        err_over_plain=max(r["err_ratio"]
+                                           for r in by_case.values()),
+                        by_case=by_case)
+    return row
+
+
+# (what, B, S, D, cached state): xlstm-125m's prefill widths from the zero
+# state, a decode-sized step from a cached one.
+SLSTM_BWD_CASES = (("xlstm-125m prefill", 2, 4096, 768, False),
+                   ("S 1", 4, 1, 768, True),
+                   ("D not a multiple of 32", 3, 200, 100, True))
+
+
+def slstm_bwd_rows(torch, seed: int) -> dict:
+    """slstm_scan_bwd through ``ops.slstm_scan``'s autograd Function
+    against the plain reverse loop, bit for bit, and S/2 + S/2 with the
+    state's adjoints carried against one launch; its time beside the
+    plain loop's and the bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import slstm_scan as kern
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 28)
+    row = None
+    for what, b, s, d, cached in SLSTM_BWD_CASES:
+        gates = torch.randn((b, s, 4 * d), generator=gen, device=dev)
+        state = slstm_state(torch, b, d, gen, cached)
+        adj = (torch.randn((b, s, d), generator=gen, device=dev),
+               *(torch.randn((b, d), generator=gen, device=dev)
+                 for _ in range(3)))
+        xs = [t.clone().requires_grad_() for t in (gates, *state)]
+        ops.reset_counts()
+        got = torch.autograd.grad(ops.slstm_scan(*xs), xs, adj)
+        counts = (ops.LAUNCHES["slstm_scan"], ops.LAUNCHES["slstm_scan_bwd"],
+                  sum(ops.PLAIN.values()))
+        require(counts == (1, 1, 0), f"slstm_scan_bwd {what}: launches "
+                f"(forward, backward, plain) {counts}, expected (1, 1, 0)")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = ref.slstm_scan_bwd(gates, *state, *adj)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        err, same = 0.0, True
+        for name, g, w in zip(("dgates", "dc0", "dn0", "dm0"), got, want):
+            require(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                    f"slstm_scan_bwd {what}: {name} malformed")
+            same = same and torch.equal(g, w)
+            err = max(err, max_err(torch, g, w) / max(float(w.abs().max()),
+                                                      1e-30))
+        require(same or err <= 1e-6, f"slstm_scan_bwd {what}: max error "
+                f"{err:.3g} of the largest gradient (bound 1e-6)")
+        carried = ""
+        if s > 1:
+            h = s // 2
+
+            def kernel_bwd(gp, st, a):
+                dg = torch.empty_like(gp)
+                d0 = [torch.empty_like(x) for x in st]
+                kern.launch_bwd(gp, *st, *(x.contiguous() for x in a),
+                                torch.empty((3, b, gp.shape[1], d),
+                                            device=dev), dg, *d0)
+                return (dg, *d0)
+
+            g1, g2 = gates[:, :h].contiguous(), gates[:, h:].contiguous()
+            mid = ops.slstm_scan(g1, *state)[1:]
+            second = kernel_bwd(g2, mid, (adj[0][:, h:], *adj[1:]))
+            first = kernel_bwd(g1, state, (adj[0][:, :h], *second[1:]))
+            chained = (torch.cat([first[0], second[0]], dim=1), *first[1:])
+            require(all(torch.equal(a, w) for a, w in zip(chained, got)),
+                    f"slstm_scan_bwd {what}: S/2 + S/2 with the adjoints "
+                    f"carried differs from one launch over S")
+            carried = "; S/2 + S/2 with the adjoints carried equals one launch"
+        log(f"  slstm_scan_bwd {what} (B {b}, S {s}, D {d}): "
+            f"{'bit for bit' if same else f'max err {err:.3g} of the largest'}"
+            f" against the plain reverse loop{carried}")
+        if what == "xlstm-125m prefill":
+            states = torch.empty((3, b, s, d), device=dev)
+            outs = [torch.empty_like(t) for t in (gates, *state)]
+            args = [gates, *state, *adj, states, *outs]
+            ms = time_ms(torch, lambda: kern.launch_bwd(*args))
+            n_bytes = 4 * b * s * (4 * d + d + 4 * d) + 4 * 10 * b * d
+            # some 45 float operations a channel a step: the forward again
+            # (12) and the adjoints (33)
+            bound = bound_ms(n_bytes, 45 * b * s * d)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
+                       library_ms=None, bound=bound,
+                       extra=dict(bitwise=same, dependent_steps=2 * s,
+                                  ns_per_step=ms * 1e6 / (2 * s),
+                                  scratch_bytes=12 * b * s * d))
+            log(f"    {ms:.3f} ms, {ms * 1e6 / (2 * s):.1f} ns a step over "
+                f"{2 * s} dependent steps; plain reverse loop "
+                f"{plain_s * 1e3:.1f} ms; bound {bound[0]:.4f} ms by "
+                f"{bound[1]}")
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["extra"]["bitwise"] = row["extra"]["bitwise"] and same
+    return row
+
+
+def train_kernel_phase(torch, seed: int, batch: int) -> dict:
+    """Phase 17 (a): the two backward kernels against their plain
+    versions.  Returns the kernels line's rows."""
+    t0 = phase("train (a): flash_attention_bwd and slstm_scan_bwd")
+    res = log_bwd_resources()
+    rows = {"flash_attention_bwd": flash_bwd_rows(torch, seed, batch),
+            "slstm_scan_bwd": slstm_bwd_rows(torch, seed)}
+    for name, key in (("flash_attention_bwd", "flash_bwd_kv"),
+                      ("slstm_scan_bwd", "slstm_bwd_kernel")):
+        regs = {k: r["registers"] for k, r in res.items() if key in k}
+        rows[name]["extra"]["registers"] = regs
+    log(f"train (a) passed in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def _grad_parity(torch, what, grad_fn, params, batch, want_counts) -> dict:
+    """One loss and gradient on the kernels (launch counts held to
+    ``want_counts``, no plain call), then with the plain attention and
+    sLSTM scan: the loss within 1e-4, every gradient leaf within
+    F32_PARITY_TOL of its largest magnitude.  Returns the kernels' launch
+    counts and the worst errors."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import tree_leaves
+
+    ops.reset_counts()
+    loss, grads = grad_fn(params, *batch)
+    torch.cuda.synchronize()
+    launches = {k: ops.LAUNCHES[k] for k in want_counts}
+    plain = sum(ops.PLAIN.values())
+    require(launches == want_counts and plain == 0,
+            f"{what}: kernel launches {launches}, expected {want_counts}; "
+            f"plain calls {plain}")
+    with plain_kernels():
+        ops.reset_counts()
+        loss_p, grads_p = grad_fn(params, *batch)
+        require(not any(ops.LAUNCHES.values()),
+                f"{what}: the plain path launched a kernel")
+    d_loss = abs(float(loss) - float(loss_p))
+    require(bool(torch.isfinite(loss)) and d_loss <= 1e-4,
+            f"{what}: loss {float(loss)} against the plain path's "
+            f"{float(loss_p)}")
+    worst = 0.0
+    for g, w in zip(tree_leaves(grads), tree_leaves(grads_p)):
+        require(bool(torch.isfinite(g).all()), f"{what}: a gradient is not "
+                f"finite")
+        top = float(w.abs().max())
+        err = max_err(torch, g, w)
+        worst = max(worst, err / top if top else err)
+        require(err <= F32_PARITY_TOL * max(top, 1e-30) or err == 0.0,
+                f"{what}: a gradient leaf {tuple(g.shape)} differs by "
+                f"{err:.3g}, largest magnitude {top:.3g}")
+    return dict(launches=launches, loss=float(loss), loss_diff=d_loss,
+                grad_rel_err=worst)
+
+
+def train_counts(cfg, steps: int = 1) -> dict:
+    """Kernel launches of ``steps`` train steps with remat: each attention
+    layer (or shared_attn invocation) and sLSTM layer runs its forward
+    twice (the recompute) and its backward once."""
+    n = kind_counts(cfg)
+    return {"flash_attention": 2 * steps * n["flash_attention"],
+            "flash_attention_bwd": steps * n["flash_attention"],
+            "slstm_scan": 2 * steps * n["slstm_scan"],
+            "slstm_scan_bwd": steps * n["slstm_scan"]}
+
+
+def train_small_phase(torch, seed: int) -> None:
+    """Phase 17 (b): one loss and gradient of every smoke config in float32
+    on the card, kernels against the plain versions, and one train step."""
+    from repro_torch.configs import registry
+    from repro_torch.models.transformer import init_params, tree_to
+    from repro_torch.train import (TrainConfig, adamw_init, make_grad_fn,
+                                   make_train_step)
+
+    t0 = phase(f"train (b): the {len(registry.ARCHS)} smoke configs, "
+               f"float32, kernels against plain")
+    tcfg = TrainConfig(loss_chunk=16, compute_dtype=torch.float32)
+    for arch in registry.ARCHS:
+        cfg = registry.smoke_config(arch)
+        gen = torch.Generator().manual_seed(seed)
+        params = tree_to(init_params(cfg, gen, device="cpu"), "cuda")
+        toks = torch.randint(0, cfg.vocab, (2, 32), generator=gen,
+                             dtype=torch.int32).cuda()
+        fe = (torch.randn((2, 5, cfg.d_model), generator=gen).cuda()
+              if cfg.modality != "text" else None)
+        batch = (toks, torch.roll(toks, -1, dims=1), fe)
+        rec = _grad_parity(torch, f"train small {cfg.name}",
+                           make_grad_fn(cfg, tcfg), params, batch,
+                           train_counts(cfg))
+        _, _, m = make_train_step(cfg, tcfg)(params, adamw_init(params),
+                                             *batch)
+        require(all(bool(torch.isfinite(m[k])) for k in m),
+                f"train small {cfg.name}: step metrics not finite")
+        log(f"  {cfg.name}: loss {rec['loss']:.5f} (plain path "
+            f"{rec['loss_diff']:.2g} off), gradients within "
+            f"{rec['grad_rel_err']:.3g} of each leaf's largest (tolerance "
+            f"{F32_PARITY_TOL}); launches "
+            f"{ {k: v for k, v in rec['launches'].items() if v} }, plain 0;"
+            f" a train step: grad_norm {float(m['grad_norm']):.4g}")
+    log(f"train (b) passed in {time.perf_counter() - t0:.1f} s")
+
+
+def _train_run(torch, arch: str, batch: int, seq: int, steps: int) -> dict:
+    """``launch/train.py``'s main on the card: ``steps`` AdamW steps at
+    full width, bf16 compute.  Fails on a non-finite loss or gradient
+    norm, on a launch count other than remat's, or on a plain call."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+
+    cfg = registry.get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t = time.perf_counter()
+    run = launcher.main(["--arch", arch, "--steps", str(steps), "--batch",
+                         str(batch), "--seq", str(seq)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    want = train_counts(cfg, steps)
+    launches = {k: ops.LAUNCHES[k] for k in want}
+    plain = dict((k, v) for k, v in ops.PLAIN.items() if v)
+    require(launches == want and not plain,
+            f"train {arch}: kernel launches {launches}, expected {want}; "
+            f"plain calls {plain}")
+    hist = run["history"]
+    require(len(hist) == steps and all(
+        math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+        for h in hist), f"train {arch}: non-finite loss or gradient norm: "
+        f"{hist}")
+    steady = [h["seconds"] for h in hist[1:]] or [hist[0]["seconds"]]
+    step_s = statistics.median(steady)
+    n_params = unique_numel(run["params"])
+    rec = dict(arch=arch, layers=cfg.n_layers, batch=batch, seq=seq,
+               steps=steps, s_per_step=step_s,
+               first_step_s=hist[0]["seconds"],
+               tokens_per_s=batch * seq / step_s, peak_gib=peak / 2**30,
+               params=n_params, launches=launches,
+               losses=[h["loss"] for h in hist],
+               grad_norms=[h["grad_norm"] for h in hist], wall_s=wall)
+    log(f"  {arch} ({cfg.n_layers} layers, {n_params:,} parameters), B "
+        f"{batch} × S {seq}, bf16: {steps} steps through launch/train.py in "
+        f"{wall:.1f} s; {step_s:.3f} s a step after the first "
+        f"({hist[0]['seconds']:.3f} s), {batch * seq / step_s:,.0f} tokens/s; "
+        f"peak {peak / 2**30:.2f} GiB (parameters, gradients and moments "
+        f"{4 * 4 * n_params / 2**30:.2f} GiB float32); losses "
+        f"{[round(x, 4) for x in rec['losses']]}, grad norms "
+        f"{[round(x, 4) for x in rec['grad_norms']]}; launches {launches}, "
+        f"plain 0")
+    del run
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_main_phase(torch, seed: int, batch: int, seq: int) -> dict:
+    """Phase 17 (c): gemma3-1b (26 layers) and xlstm-125m at full width
+    through launch/train.py, 3 steps each in bf16; then one float32 loss
+    and gradient of each, kernels against plain (gemma3-1b cut to its first
+    6 layers, one of them global)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models.config import Segment
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import TrainConfig, make_grad_fn
+
+    t0 = phase(f"train (c): gemma3-1b and xlstm-125m at full width, B "
+               f"{batch} × S {seq}, through launch/train.py")
+    runs = {arch: _train_run(torch, arch, batch, seq, 3)
+            for arch in ("gemma3-1b", "xlstm-125m")}
+    parity = {}
+    for arch in ("gemma3-1b", "xlstm-125m"):
+        cfg = registry.get_config(arch)
+        if arch == "gemma3-1b":
+            cfg = dataclasses.replace(cfg, segments=(
+                Segment(reps=1, layers=cfg.segments[0].layers),))
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(cfg, gen, device="cuda")
+        toks = torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        grad_fn = make_grad_fn(cfg, TrainConfig(compute_dtype=torch.float32))
+        t = time.perf_counter()
+        rec = _grad_parity(torch, f"train {arch} ({cfg.n_layers} layers) "
+                           f"float32", grad_fn, params,
+                           (toks, torch.roll(toks, -1, dims=1), None),
+                           train_counts(cfg))
+        parity[arch] = dict(rec, layers=cfg.n_layers)
+        log(f"  {arch} ({cfg.n_layers} layers) float32: loss {rec['loss']:.5f}"
+            f", kernels against plain {rec['loss_diff']:.2g}; gradients "
+            f"within {rec['grad_rel_err']:.3g} of each leaf's largest "
+            f"(tolerance {F32_PARITY_TOL}); launches {rec['launches']}; "
+            f"{time.perf_counter() - t:.1f} s")
+        del params, grad_fn
+        torch.cuda.empty_cache()
+    log(f"train (c) passed in {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "parity": parity}
 
 
 # ---------------------------------------------------------------------------
@@ -3574,6 +4105,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.configs import nyt1m
+
+    global NYT_VOCAB, NYT_NT_MEAN, NYT_K
+    job = nyt1m.config()
+    NYT_VOCAB, NYT_NT_MEAN, NYT_K = job.vocab, job.nt_mean, job.k
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3711,6 +4247,19 @@ def main() -> int:
             paths[name] += [f"{e[0]} prefill" for e in entries
                             if kind_counts(registry.get_config(e[0]))[name]]
     rows["flash_attention"]["extra"]["launches_in_run"] = run_launches
+
+    rows.update(train_kernel_phase(torch, args.seed, args.lm_batch))
+    train_small_phase(torch, args.seed)
+    train = train_main_phase(torch, args.seed, args.lm_batch, args.lm_seq)
+    for name, arch in (("flash_attention_bwd", "gemma3-1b"),
+                       ("slstm_scan_bwd", "xlstm-125m")):
+        launches[name] = train["runs"][arch]["launches"][name]
+        paths[name] = [f"{arch} training, 3 steps"]
+        rows[name]["extra"]["train"] = train["runs"][arch]
+        rows[name]["extra"]["f32_parity"] = train["parity"][arch]
+        fwd = name[:-4]
+        rows[fwd]["extra"]["train_launches"] = \
+            train["runs"][arch]["launches"][fwd]
 
     kernels = []
     for name in SOURCES:

@@ -10,9 +10,10 @@ gemma3-1b prefill's shape), and at hd 64 and 128, each with windows -1
 (full causal) and 512, on unit-normal q, k, v from ``--seed``, it times
 
 - this checkout's ``ops.flash_attention``;
-- the same C entry point (``flash_attention_launch``) from every
-  ``--other`` source (a ``csrc/flash_attention.cu`` of another revision,
-  e.g. unpacked with ``git archive``);
+- the same C entry point from every ``--other`` source (a
+  ``csrc/flash_attention.cu`` of another revision, e.g. unpacked with
+  ``git archive``): ``flash_attention_lse_launch`` with no lse, or
+  ``flash_attention_launch`` in a revision older than the lse output;
 - ``scaled_dot_product_attention`` in float32 (no TF32), the library
   yardstick;
 
@@ -54,19 +55,23 @@ TOL = 2e-5
 def other_flash(torch, lib):
     """fn(q, k, v, window) through another revision's C entry point."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_launch.restype = i
-    lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
-                                           p]
+    with_lse = hasattr(lib, "flash_attention_lse_launch")
+    entry = (lib.flash_attention_lse_launch if with_lse
+             else lib.flash_attention_launch)
+    entry.restype = i
+    entry.argtypes = [p, p, p, p, *([p] if with_lse else []), i, i, i, i, i,
+                      i, f, p]
 
     def run(q, k, v, window):
         bh, sq, hd = q.shape
         out = torch.empty_like(q)
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            k.shape[1], hd, k.shape[1], window, 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        lse = [None] if with_lse else []
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   *lse, bh, sq, k.shape[1], hd, k.shape[1], window,
+                   1.0 / math.sqrt(hd),
+                   torch.cuda.current_stream(q.device).cuda_stream)
         if rc:
-            raise RuntimeError(f"flash_attention_launch error {rc}")
+            raise RuntimeError(f"{entry.__name__} error {rc}")
         return out
 
     return run

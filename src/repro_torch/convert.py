@@ -13,7 +13,10 @@ object's fields), so this module needs nothing of ``repro``.  For a
 With these, a model fitted by ``repro`` classifies identically in the port,
 and a ``repro`` state steps identically.  :func:`lm_params_from_numpy` does
 the same for an LM's parameters (``repro.models.init_params``), and
-:func:`lm_cache_from_numpy` for its decode cache.
+:func:`lm_cache_from_numpy` for its decode cache; :func:`lm_params_to_numpy`
+goes back (parameters or gradients, to ``repro``'s stacked layout), and
+:func:`adamw_state_to_numpy` / :func:`adamw_state_from_numpy` carry an
+AdamW state (``repro.train.adamw_init``'s mu, nu, count) either way.
 """
 from __future__ import annotations
 
@@ -128,3 +131,50 @@ def lm_cache_from_numpy(tree, cfg, *, device="cuda") -> list[dict]:
             for si, seg in enumerate(cfg.segments)
             for r in range(seg.reps)
             for pi in range(len(seg.layers))]
+
+
+def lm_params_to_numpy(params, cfg) -> dict:
+    """The inverse of :func:`lm_params_from_numpy`: the port's parameter
+    (or gradient) tree -> ``repro``'s nested dict of numpy leaves, each
+    segment position's layers stacked on a leading ``reps`` axis, one
+    ``shared`` entry and no segment entry for a ``shared_attn``
+    position."""
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    out = {name: host(params[name])
+           for name in ("embed", "final_norm", "lm_head", "frontend_proj")
+           if name in params}
+    if "shared" in params:
+        out["shared"] = {n: host(t) for n, t in params["shared"].items()}
+    first = 0
+    for si, seg in enumerate(cfg.segments):
+        width = len(seg.layers)
+        seg_tree = {}
+        for pi, spec in enumerate(seg.layers):
+            if spec.kind == "shared_attn":
+                continue
+            reps = [params["layers"][first + r * width + pi]
+                    for r in range(seg.reps)]
+            seg_tree[f"pos{pi}"] = {n: np.stack([host(lp[n]) for lp in reps])
+                                    for n in reps[0]}
+        out[f"seg{si}"] = seg_tree
+        first += seg.reps * width
+    return out
+
+
+def adamw_state_to_numpy(state, cfg) -> dict:
+    """An AdamW state ({"mu", "nu": parameter trees, "count": int32}) ->
+    ``repro``'s layout, numpy leaves."""
+    return {"mu": lm_params_to_numpy(state["mu"], cfg),
+            "nu": lm_params_to_numpy(state["nu"], cfg),
+            "count": np.asarray(state["count"].cpu().numpy(), np.int32)}
+
+
+def adamw_state_from_numpy(tree, cfg, *, device="cuda") -> dict:
+    """``repro``'s AdamW state (numpy leaves) -> the port's, on
+    ``device``."""
+    dev = resolve_device(device)
+    return {"mu": lm_params_from_numpy(tree["mu"], cfg, device=dev),
+            "nu": lm_params_from_numpy(tree["nu"], cfg, device=dev),
+            "count": _t(tree["count"], np.int32, dev).reshape(())}

@@ -2,11 +2,16 @@
 // kernels/flash_attention.py).
 //
 //   q (BH, Sq, hd), k/v (BH, Sk, hd) float32 -> out (BH, Sq, hd) float32
+//   and, for training, lse (BH, Sq) float32 (nullptr: not written)
 //
 // Key k_pos is live for query q_pos iff k_pos <= q_pos, q_pos - k_pos <
 // window (window < 0: full causal) and k_pos < sk_real.  Masked scores are
 // -1e30 and add exactly 0; out = acc / max(l, 1e-30), so a row with no live
 // key gives 0.  hd is a template parameter: 16, 32, 64, 128 or 256.
+// lse is each row's log-sum-exp of its live scaled scores, m + log(l) of
+// the online softmax, +inf for a row with no live key; the backward
+// (flash_attention_bwd.cu) recomputes P = exp(s·scale - lse) from it.
+// Serving passes nullptr and the kernel writes nothing more.
 //
 // Both products, S = Q·Kᵀ and O += P·V, run as split-TF32 mma.sync
 // (m16n8k8, fp32 accumulation).  Each operand x is split on load into
@@ -147,8 +152,9 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads<HD>, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int BH,
-             int Sq, int Sk, int sk_real, int window, float scale) {
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int BH, int Sq, int Sk, int sk_real,
+             int window, float scale) {
   static_assert(HD % 16 == 0 && HD <= 256, "hd must be a multiple of 16");
   constexpr int kSQ = Layout<HD>::kSQ, kSV = Layout<HD>::kSV;
   constexpr int kT = kThreads<HD>;
@@ -400,6 +406,9 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l += __shfl_xor_sync(kFull, l, 2);
     const int qp = qr + 8 * r;
     if (qp >= Sq) continue;
+    if (lse != nullptr && d0 == 0 && t == 0)
+      lse[static_cast<size_t>(bh) * Sq + qp] =
+          l > 0.f ? m_run[r] + logf(l) : __int_as_float(0x7f800000);
     const float den = fmaxf(l, 1e-30f);
     float* orow = ob + static_cast<size_t>(qp) * HD + d0 + 2 * kVN * t;
 #pragma unroll
@@ -426,8 +435,8 @@ cudaError_t configure() {
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int BH,
-           int Sq, int Sk, int sk_real, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int BH, int Sq, int Sk, int sk_real, int window, float scale,
            cudaStream_t stream) {
   cudaError_t err = configure<HD>();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -436,8 +445,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int BH,
   flash_kernel<HD><<<static_cast<unsigned>(blocks), kThreads<HD>,
                      Layout<HD>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), BH, Sq, Sk,
-      sk_real, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), BH, Sq, Sk, sk_real, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,19 +463,21 @@ int resources(int* smem_bytes, int* blocks_per_sm) {
 
 }  // namespace
 
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int BH, int Sq,
-                                      int Sk, int hd, int sk_real, int window,
-                                      float scale, void* stream) {
+// lse: nullptr (serving) or (BH, Sq) float32 (training's forward).
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* out, void* lse,
+                                          int BH, int Sq, int Sk, int hd,
+                                          int sk_real, int window, float scale,
+                                          void* stream) {
   if (BH < 1 || Sq < 1 || Sk < 1 || sk_real < 0 || sk_real > Sk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
-    case 32: return launch<32>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
-    case 64: return launch<64>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
-    case 128: return launch<128>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
-    case 256: return launch<256>(q, k, v, out, BH, Sq, Sk, sk_real, window, scale, s);
+    case 16: return launch<16>(q, k, v, out, lse, BH, Sq, Sk, sk_real, window, scale, s);
+    case 32: return launch<32>(q, k, v, out, lse, BH, Sq, Sk, sk_real, window, scale, s);
+    case 64: return launch<64>(q, k, v, out, lse, BH, Sq, Sk, sk_real, window, scale, s);
+    case 128: return launch<128>(q, k, v, out, lse, BH, Sq, Sk, sk_real, window, scale, s);
+    case 256: return launch<256>(q, k, v, out, lse, BH, Sq, Sk, sk_real, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

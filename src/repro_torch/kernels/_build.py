@@ -21,7 +21,8 @@ import time
 from pathlib import Path
 
 SOURCES = ("gather", "esicp_filter", "segment_update", "rho_gather",
-           "sketch", "flash_attention", "routed_scan", "slstm_scan")
+           "sketch", "flash_attention", "routed_scan", "slstm_scan",
+           "flash_attention_bwd", "slstm_scan_bwd")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -43,11 +43,27 @@ score's hi·hi terms per 16-dim chunk from zero, its small terms apart,
 and each tile's P·V from zero, joined to O by one rounded fmaf.  Operands
 are split as they are read from shared memory, whose row strides leave
 no bank conflict.
+
+Training: :class:`FlashAttention` is the autograd Function that
+``kernels/ops`` routes CUDA operands that need a gradient through.  Its
+forward is this kernel with each row's log-sum-exp written beside the
+output (``flash_attention_lse_launch``; serving's launches write none);
+its backward is ``csrc/flash_attention_bwd.cu``, plain version
+:func:`repro_torch.kernels.ref.flash_attention_bwd`.  ``repro`` has no
+backward kernel: it differentiates its jnp attention
+(``models/layers.py:_attn_core``), whose gradient the backward computes.
+It runs in fp32 on the CUDA cores, two launches (each row's D and
+normaliser, then dq, by query tiles; then dk and dv by key tiles), no
+atomics, so two runs give the same bits; why D and the normaliser are its
+own sums, and what bounds it, is in the source's note.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention as plain  # noqa: F401
+from repro_torch.kernels.ref import flash_attention_bwd as plain_bwd  # noqa: F401
 
 # Head dims the kernel is instantiated for.  ``kernels/ops`` runs any
 # other head dim up to 256 on the next of them, q, k and v padded with
@@ -56,11 +72,18 @@ from repro_torch.kernels.ref import flash_attention as plain  # noqa: F401
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _SIG = {
-    "flash_attention_launch": (_build.c_int, [
-        _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.c_int,
+    "flash_attention_lse_launch": (_build.c_int, [
+        _build.ptr, _build.ptr, _build.ptr, _build.ptr, _build.ptr,
         _build.c_int, _build.c_int, _build.c_int, _build.c_int, _build.c_int,
-        _build.c_float, _build.ptr]),
+        _build.c_int, _build.c_float, _build.ptr]),
     "flash_attention_resources": (_build.c_int, [
+        _build.c_int, _build.ptr, _build.ptr]),
+}
+_BWD_SIG = {
+    "flash_attention_bwd_launch": (_build.c_int, [
+        *[_build.ptr] * 9, *[_build.c_int] * 6, _build.c_float,
+        _build.ptr]),
+    "flash_attention_bwd_resources": (_build.c_int, [
         _build.c_int, _build.ptr, _build.ptr]),
 }
 
@@ -69,15 +92,21 @@ def library():
     return _build.load("flash_attention", _SIG)
 
 
-def resources(hd: int) -> tuple[int, int]:
-    """(dynamic shared bytes, blocks an SM) of the instantiation for hd."""
+def bwd_library():
+    return _build.load("flash_attention_bwd", _BWD_SIG)
+
+
+def resources(hd: int, backward: bool = False) -> tuple[int, int]:
+    """(dynamic shared bytes, blocks an SM) of the instantiation for hd,
+    of the forward or of the backward's key launch."""
     import ctypes
 
-    lib = library()
+    name = "flash_attention_bwd" if backward else "flash_attention"
+    lib = bwd_library() if backward else library()
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    rc = lib.flash_attention_resources(hd, ctypes.byref(smem),
-                                       ctypes.byref(blocks))
-    _build.check(lib, "flash_attention", rc)
+    rc = getattr(lib, f"{name}_resources")(hd, ctypes.byref(smem),
+                                           ctypes.byref(blocks))
+    _build.check(lib, name, rc)
     return smem.value, blocks.value
 
 
@@ -91,14 +120,83 @@ def padded_head_dim(hd: int) -> int:
                      f"{HEAD_DIMS[-1]}")
 
 
-def launch(q, k, v, window: int, sk_real: int, out, scale: float) -> None:
+def launch(q, k, v, window: int, sk_real: int, out, scale: float,
+           lse=None) -> None:
     """flash_attention on the current stream; operands are checked by
     kernels/ops.  ``scale`` multiplies the scores: 1/sqrt(hd) of the
-    unpadded head dim when the operands carry zero columns."""
+    unpadded head dim when the operands carry zero columns.  ``lse``
+    (BH, Sq) float32, if given, gets each row's log-sum-exp."""
     lib = library()
     bh, sq, hd = q.shape
-    rc = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-        k.shape[1], hd, sk_real, window, float(scale),
-        _build.stream_ptr(q.device))
+    rc = lib.flash_attention_lse_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bh, sq, k.shape[1], hd,
+        sk_real, window, float(scale), _build.stream_ptr(q.device))
     _build.check(lib, "flash_attention", rc)
+
+
+def launch_bwd(q, k, v, lse, do, window: int, sk_real: int, scale: float,
+               dq, dk, dv, scratch) -> None:
+    """The backward's two launches on the current stream: q, do, dq (BH,
+    Sq, hd), k, v, dk, dv (BH, Sk, hd), lse (BH, Sq) and the scratch (2,
+    BH, Sq) (each row's D and Z), all float32, contiguous, at an
+    instantiated hd."""
+    lib = bwd_library()
+    bh, sq, hd = q.shape
+    rc = lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), scratch.data_ptr(), bh, sq, k.shape[1], hd, sk_real,
+        window, float(scale), _build.stream_ptr(q.device))
+    _build.check(lib, "flash_attention_bwd", rc)
+
+
+def attend(q, k, v, window: int, sk_real: int, scale: float, lse=None):
+    """A new (BH, Sq, hd) float32 output from one launch counted as
+    ``flash_attention`` in ``ops.LAUNCHES`` (see :func:`launch`); an empty
+    operand launches nothing and gives zeros (and ``lse`` as it was)."""
+    from repro_torch.kernels import ops
+
+    bh, sq, hd = q.shape
+    if not (bh and sq and k.shape[1]):
+        return torch.zeros((bh, sq, hd), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty((bh, sq, hd), dtype=torch.float32, device=q.device)
+    launch(q, k, v, window, sk_real, out, scale, lse)
+    ops.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """flash_attention with its hand-written backward, for CUDA operands
+    that need a gradient (``kernels/ops`` checks them, zero-pads hd to an
+    instantiation and routes them here).  q, k, v and lse are saved for
+    the backward.  Counts ``flash_attention`` per forward (a checkpointed
+    layer's recompute included) and ``flash_attention_bwd`` per backward
+    in ``ops.LAUNCHES``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, sk_real: int, scale: float):
+        lse = torch.full(q.shape[:2], torch.inf, device=q.device)
+        out = attend(q, k, v, window, sk_real, scale, lse)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.window, ctx.sk_real, ctx.scale = window, sk_real, scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        from repro_torch.kernels import ops
+
+        q, k, v, lse = ctx.saved_tensors
+        bh, sq, _ = q.shape
+        run = bool(bh and sq and k.shape[1])
+        dq, dk, dv = ((torch.empty_like if run else torch.zeros_like)(t)
+                      for t in (q, k, v))
+        if run:
+            scratch = torch.empty((2, bh, sq), dtype=torch.float32,
+                                  device=q.device)
+            launch_bwd(q, k, v, lse, dout.contiguous(), ctx.window,
+                       ctx.sk_real, ctx.scale, dq, dk, dv, scratch)
+            ops.LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None

@@ -17,6 +17,15 @@ The two gathers take ``tuned=`` (a :class:`repro_torch.tune.TunedConfig`)
 and launch at its tile setting; the square and per-row-threshold variants
 have setting 0 only.  On CPU tensors the config is checked and ignored:
 the plain versions have no tiles.
+
+Gradients: on the CPU the plain versions are plain torch code, and
+autograd through them is the reference (its backward through
+:func:`flash_attention` or :func:`slstm_scan` counts in ``PLAIN`` as
+``flash_attention_bwd`` or ``slstm_scan_bwd``).  A CUDA operand of either
+that needs a gradient (grad mode on) goes through the kernel's autograd
+Function, whose backward is a kernel too (counted in ``LAUNCHES`` under
+those names), so no kernel output that a gradient must cross lacks a
+``grad_fn``.
 """
 from __future__ import annotations
 
@@ -29,7 +38,8 @@ from repro_torch.kernels import ref
 KERNELS = ("esicp_gather", "esicp_filter", "segment_update", "rho_gather",
            "sparse_sim", "esicp_gather_ta", "sparse_sim_square", "doc_sketch",
            "sketch_sim", "flash_attention", "segment_update_init",
-           "routed_scan", "slstm_scan")
+           "routed_scan", "slstm_scan", "flash_attention_bwd",
+           "slstm_scan_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN = dict.fromkeys(KERNELS, 0)
 
@@ -69,6 +79,21 @@ def _check_tuples(ids, vals):
     if ids.shape != vals.shape:
         raise ValueError(f"ids {tuple(ids.shape)} and vals "
                          f"{tuple(vals.shape)} differ")
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _plain_backward_counted(out, name: str):
+    """``out`` of a plain version, its backward through autograd counted
+    in PLAIN[name] when it runs."""
+    def count(grad):
+        PLAIN[name] += 1
+
+    if out.requires_grad:
+        out.register_hook(count)
+    return out
 
 
 def _setting(tuned, gather: str, counts: bool) -> int:
@@ -353,17 +378,14 @@ def slstm_scan(gates, c0, n0, m0):
                              f"{tuple(t.shape)}")
     if not _on_cuda(gates, c0, n0, m0):
         PLAIN["slstm_scan"] += 1
-        return ref.slstm_scan(gates, c0, n0, m0)
+        hs, c, n, m = ref.slstm_scan(gates, c0, n0, m0)
+        return _plain_backward_counted(hs, "slstm_scan_bwd"), c, n, m
     from repro_torch.kernels import slstm_scan as kern
 
     _contiguous(("gates", gates), ("c0", c0), ("n0", n0), ("m0", m0))
-    hs = torch.empty((b, s, d4 // 4), dtype=torch.float32, device=gates.device)
-    if not (s and b and d4):
-        return hs, c0.clone(), n0.clone(), m0.clone()
-    c, n, m = (torch.empty_like(c0) for _ in range(3))
-    kern.launch(gates, c0, n0, m0, hs, c, n, m)
-    LAUNCHES["slstm_scan"] += 1
-    return hs, c, n, m
+    if _needs_grad(gates, c0, n0, m0):
+        return kern.SlstmScan.apply(gates, c0, n0, m0)
+    return kern.scan(gates, c0, n0, m0)
 
 
 def doc_sketch(ids, vals, dim: int, sketch_size: int):
@@ -436,7 +458,9 @@ def flash_attention(q, k, v, *, window: int = -1, sk_real: int | None = None):
     window = int(window)
     if not _on_cuda(q, k, v):
         PLAIN["flash_attention"] += 1
-        return ref.flash_attention(q, k, v, window, sk_real)
+        return _plain_backward_counted(
+            ref.flash_attention(q, k, v, window, sk_real),
+            "flash_attention_bwd")
     from repro_torch.kernels import flash_attention as kern
 
     _contiguous(("q", q), ("k", k), ("v", v))
@@ -445,9 +469,9 @@ def flash_attention(q, k, v, *, window: int = -1, sk_real: int | None = None):
         q, k, v = (torch.nn.functional.pad(t, (0, hp - hd)) for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned for the kernel")
-    if not (bh and sq and sk):
-        return torch.zeros((bh, sq, hd), dtype=torch.float32, device=q.device)
-    out = torch.empty((bh, sq, hp), dtype=torch.float32, device=q.device)
-    kern.launch(q, k, v, window, sk_real, out, 1.0 / math.sqrt(hd))
-    LAUNCHES["flash_attention"] += 1
+    scale = 1.0 / math.sqrt(hd)
+    if _needs_grad(q, k, v):
+        out = kern.FlashAttention.apply(q, k, v, window, sk_real, scale)
+    else:
+        out = kern.attend(q, k, v, window, sk_real, scale)
     return out if hp == hd else out[..., :hd].contiguous()

@@ -350,27 +350,72 @@ def sketch_sim(sk_docs, sketch_t):
     return out
 
 
-def flash_attention(q, k, v, window: int = -1, sk_real: int | None = None):
+def band_mask(sq: int, sk: int, window: int, sk_real: int, device):
+    """(Sq, Sk) bool: key k_pos is live for query q_pos iff k_pos <= q_pos,
+    q_pos - k_pos < window (window < 0: full causal) and k_pos < sk_real."""
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(sk, device=device)[None, :]
+    mask = (kp <= qp) & (kp < sk_real)
+    if window >= 0:
+        mask &= (qp - kp) < window
+    return mask
+
+
+def flash_attention(q, k, v, window: int = -1, sk_real: int | None = None, *,
+                    with_lse: bool = False):
     """(BH, Sq, hd) x (BH, Sk, hd) banded-causal attention, float32.
 
     Query and key positions both start at 0; key k_pos is live for query
     q_pos iff k_pos <= q_pos, q_pos - k_pos < window (window < 0: full
     causal) and k_pos < sk_real (default Sk).  Masked scores are -1e30, and
-    a row with no live key gives 0.
+    a row with no live key gives 0.  ``with_lse``: also each row's
+    log-sum-exp of its scaled scores (BH, Sq), +inf on a row with no live
+    key, what the backward recomputes the probabilities from.
     """
     bh, sq, hd = q.shape
     sk = k.shape[1]
     sk_real = sk if sk_real is None else sk_real
     s = torch.einsum("bqd,bkd->bqk", q, k) / math.sqrt(float(hd))
-    qp = torch.arange(sq, device=q.device)[:, None]
-    kp = torch.arange(sk, device=q.device)[None, :]
-    mask = (kp <= qp) & (kp < sk_real)
-    if window >= 0:
-        mask &= (qp - kp) < window
+    mask = band_mask(sq, sk, window, sk_real, q.device)
     s = torch.where(mask[None], s, -1e30)
     probs = torch.softmax(s, dim=-1)
-    probs = torch.where(mask.any(dim=1)[None, :, None], probs, 0.0)
-    return torch.einsum("bqk,bkd->bqd", probs, v)
+    row_live = mask.any(dim=1)[None, :]
+    probs = torch.where(row_live[..., None], probs, 0.0)
+    out = torch.einsum("bqk,bkd->bqd", probs, v)
+    if not with_lse:
+        return out
+    return out, torch.where(row_live, torch.logsumexp(s, dim=-1), torch.inf)
+
+
+def flash_attention_bwd(q, k, v, lse, do, window: int = -1,
+                        sk_real: int | None = None):
+    """The gradient of :func:`flash_attention` at (q, k, v) for the
+    output's adjoint ``do``, from the forward's ``lse`` -> (dq, dk, dv),
+    float32.  With s the scaled scores, over the live pairs only:
+
+        P~ = exp(s - lse);  Z = rowsum(P~);  P = P~ / Z;  dP = do·vᵀ
+        D = rowsum(P ∘ dP);  dS = P ∘ (dP - D)
+        dv = Pᵀ·do;  dk = dSᵀ·q / sqrt(hd);  dq = dS·k / sqrt(hd)
+
+    so a row with no live key and a key at or past ``sk_real`` get 0.  Z
+    is 1 and D is rowsum(do ∘ o) but for rounding; summed from the same P
+    and dP as dS, their rounding cancels as in the softmax's own backward
+    (``csrc/flash_attention_bwd.cu`` does the same)."""
+    bh, sq, hd = q.shape
+    sk = k.shape[1]
+    sk_real = sk if sk_real is None else sk_real
+    root = math.sqrt(float(hd))
+    s = torch.einsum("bqd,bkd->bqk", q, k) / root
+    mask = band_mask(sq, sk, window, sk_real, q.device)
+    p = torch.where(mask[None], torch.exp(s - lse[..., None]), 0.0)
+    z = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(z > 0, z, 1.0)
+    dv = torch.einsum("bqk,bqd->bkd", p, do)
+    dp = torch.einsum("bqd,bkd->bqk", do, v)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bqk,bkd->bqd", ds, k) / root
+    dk = torch.einsum("bqk,bqd->bkd", ds, q) / root
+    return dq, dk, dv
 
 
 def slstm_scan(gates, c0, n0, m0):
@@ -386,6 +431,10 @@ def slstm_scan(gates, c0, n0, m0):
     repeats, so neither depends on how torch computes its own sigmoid."""
     b, s, d4 = gates.shape
     z, i, f, o = gates.split(d4 // 4, dim=-1)
+    # max against a 1, not clamp: on a tie n == 1 autograd then splits the
+    # gradient as JAX's jnp.maximum does (step 0 of every prefill ties, but
+    # there the weight cancels; a step from a cached state need not)
+    one = torch.ones((), dtype=torch.float32, device=gates.device)
     c, n, m = c0, n0, m0
     hs = torch.empty((b, s, d4 // 4), dtype=torch.float32, device=gates.device)
     for t in range(s):
@@ -396,6 +445,81 @@ def slstm_scan(gates, c0, n0, m0):
         c = f_e * c + i_e * torch.tanh(z[:, t])
         n = f_e * n + i_e
         sig = torch.reciprocal(1.0 + torch.exp(-o[:, t]))
-        hs[:, t] = sig * c / torch.clamp(n, min=1.0)
+        hs[:, t] = sig * c / torch.maximum(n, one)
         m = m_new
     return hs, c.clone(), n.clone(), m.clone()
+
+
+def max_weight(a, b):
+    """The share of max(a, b)'s gradient that goes to a under JAX's rule
+    (``jnp.maximum``, which ``repro`` differentiates): 1 if a > b, 1/2 on a
+    tie, 0 below."""
+    return torch.where(a > b, 1.0, torch.where(a == b, 0.5, 0.0))
+
+
+def slstm_scan_bwd(gates, c0, n0, m0, dhs, dc, dn, dm):
+    """The gradient of :func:`slstm_scan` from the state (c0, n0, m0) for
+    the adjoints dhs (B, S, D) of hs and dc, dn, dm (B, D) of the final
+    state -> (dgates (B, S, 4D), dc0, dn0, dm0), float32.
+
+    The forward runs again, keeping the state after every step; then, from
+    t = S - 1 down to 0, with (c, n, m) the state before step t and (c',
+    n', m') after it, w = :func:`max_weight`:
+
+        fm = f + m;  ie = exp(i - m');  fe = exp(fm - m');  u = tanh(z)
+        sig = 1 / (1 + exp(-o));  den = max(n', 1);  h = sig·c' / den
+        gq = gh / den;  go = (gq·c')·sig·(1 - sig)
+        gc' += gq·sig;  gn' -= (gq·h)·w(n', 1)
+        gfe = gc'·c + gn'·n;  gie = gc'·u + gn';  gu = gc'·ie
+        gz = (gu + gu·u)·(1 - u)             (jax's rule for tanh)
+        ga = gfe·fe;  gb = gie·ie;  gm' = gm' - ga - gb
+        gi = gb + gm'·w(i, fm);  gf = gm = ga + gm'·w(fm, i)
+        gc = gc'·fe;  gn = gn'·fe
+
+    ``csrc/slstm_scan_bwd.cu`` repeats these operations in this order."""
+    b, s, d4 = gates.shape
+    d = d4 // 4
+    z, i, f, o = gates.split(d, dim=-1)
+    one = torch.ones((), dtype=torch.float32, device=gates.device)
+    states = [(c0, n0, m0)]
+    c, n, m = c0, n0, m0
+    for t in range(s):
+        fm = f[:, t] + m
+        m = torch.maximum(fm, i[:, t])
+        i_e = torch.exp(i[:, t] - m)
+        f_e = torch.exp(fm - m)
+        c = f_e * c + i_e * torch.tanh(z[:, t])
+        n = f_e * n + i_e
+        states.append((c, n, m))
+    dgates = torch.empty_like(gates)
+    gc, gn, gm = dc, dn, dm
+    for t in reversed(range(s)):
+        cp, np_, mp = states[t]
+        c1, n1, m1 = states[t + 1]
+        zt, it, ft, ot = z[:, t], i[:, t], f[:, t], o[:, t]
+        fm = ft + mp
+        ie = torch.exp(it - m1)
+        fe = torch.exp(fm - m1)
+        u = torch.tanh(zt)
+        sig = torch.reciprocal(1.0 + torch.exp(-ot))
+        den = torch.maximum(n1, one)
+        h = sig * c1 / den
+        gq = dhs[:, t] / den
+        go = gq * c1 * sig * (1.0 - sig)
+        gc1 = gc + gq * sig
+        gn1 = gn - gq * h * max_weight(n1, one)
+        gfe = gc1 * cp + gn1 * np_
+        gie = gc1 * u + gn1
+        gu = gc1 * ie
+        gz = (gu + gu * u) * (1.0 - u)
+        ga = gfe * fe
+        gb = gie * ie
+        gm1 = gm - ga - gb
+        gi = gb + gm1 * max_weight(it, fm)
+        gfm = ga + gm1 * max_weight(fm, it)
+        dgates[:, t, :d] = gz
+        dgates[:, t, d:2 * d] = gi
+        dgates[:, t, 2 * d:3 * d] = gfm
+        dgates[:, t, 3 * d:] = go
+        gc, gn, gm = gc1 * fe, gn1 * fe, gfm
+    return dgates, gc, gn, gm

@@ -34,11 +34,24 @@ their gate copies, which overlap only in part (``scripts/slstm_probe.py``
 times the workers alone, the chains alone and the chains' dependent
 operations alone).  It stays one launch, so a decode step stays one
 launch, and sequential: a parallel prefix would reassociate rounded sums.
+
+Training: :class:`SlstmScan` is the autograd Function that ``kernels/ops``
+routes CUDA operands that need a gradient through; its backward is
+``csrc/slstm_scan_bwd.cu`` (plain version
+:func:`repro_torch.kernels.ref.slstm_scan_bwd`, the reverse loop, which it
+matches bit for bit): a thread a channel runs the forward again, keeping
+the state after every step in a scratch of 12·B·S·D bytes, then walks
+back in time.  ``repro`` differentiates its ``lax.scan`` with JAX's rules
+(``jnp.maximum`` splits a tie's gradient in half), which the adjoints
+follow.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import slstm_scan as plain  # noqa: F401
+from repro_torch.kernels.ref import slstm_scan_bwd as plain_bwd  # noqa: F401
 
 # The block's geometry: csrc/slstm_scan.cu's kChannels, kWarps and kTile (a
 # CPU test holds these and WALK_BELOW equal to the source's).  A block
@@ -57,6 +70,11 @@ _SIG = {
         _build.c_int, _build.c_int, _build.ptr, _build.ptr, _build.ptr,
         _build.ptr, _build.ptr]),
     "slstm_scan_resources": (_build.c_int, [_build.ptr, _build.ptr]),
+}
+_BWD_SIG = {
+    "slstm_scan_bwd_launch": (_build.c_int, [
+        *[_build.ptr] * 8, _build.c_int, _build.c_int, _build.c_int,
+        *[_build.ptr] * 6]),
 }
 
 
@@ -86,3 +104,66 @@ def launch(gates, c0, n0, m0, hs, c, n, m) -> None:
         d4 // 4, hs.data_ptr(), c.data_ptr(), n.data_ptr(), m.data_ptr(),
         _build.stream_ptr(gates.device))
     _build.check(lib, "slstm_scan", rc)
+
+
+def launch_bwd(gates, c0, n0, m0, dhs, dc, dn, dm, states, dgates, dc0,
+               dn0, dm0) -> None:
+    """The backward on the current stream; all float32 and contiguous,
+    ``states`` a (3, B, S, D) scratch."""
+    lib = _build.load("slstm_scan_bwd", _BWD_SIG)
+    b, s, d4 = gates.shape
+    rc = lib.slstm_scan_bwd_launch(
+        gates.data_ptr(), c0.data_ptr(), n0.data_ptr(), m0.data_ptr(),
+        dhs.data_ptr(), dc.data_ptr(), dn.data_ptr(), dm.data_ptr(), b, s,
+        d4 // 4, states.data_ptr(), dgates.data_ptr(), dc0.data_ptr(),
+        dn0.data_ptr(), dm0.data_ptr(), _build.stream_ptr(gates.device))
+    _build.check(lib, "slstm_scan_bwd", rc)
+
+
+def scan(gates, c0, n0, m0):
+    """(hs, c, n, m), new float32 tensors, from one launch counted as
+    ``slstm_scan`` in ``ops.LAUNCHES``; an empty scan launches nothing and
+    returns copies of the state.  Operands are checked by kernels/ops."""
+    from repro_torch.kernels import ops
+
+    b, s, d4 = gates.shape
+    hs = torch.empty((b, s, d4 // 4), dtype=torch.float32,
+                     device=gates.device)
+    if not (s and b and d4):
+        return hs, c0.clone(), n0.clone(), m0.clone()
+    c, n, m = (torch.empty_like(c0) for _ in range(3))
+    launch(gates, c0, n0, m0, hs, c, n, m)
+    ops.LAUNCHES["slstm_scan"] += 1
+    return hs, c, n, m
+
+
+class SlstmScan(torch.autograd.Function):
+    """slstm_scan with its hand-written backward, for CUDA operands that
+    need a gradient (checked by ``kernels/ops``).  Outputs (hs, c, n, m);
+    an output whose gradient is not asked for takes zeros.  Counts
+    ``slstm_scan`` per forward (a checkpointed layer's recompute included)
+    and ``slstm_scan_bwd`` per backward in ``ops.LAUNCHES``."""
+
+    @staticmethod
+    def forward(ctx, gates, c0, n0, m0):
+        ctx.save_for_backward(gates, c0, n0, m0)
+        return scan(gates, c0, n0, m0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dhs, dc, dn, dm):
+        from repro_torch.kernels import ops
+
+        gates, c0, n0, m0 = ctx.saved_tensors
+        b, s, d4 = gates.shape
+        if not (s and b and d4):
+            return torch.zeros_like(gates), dc, dn, dm
+        dhs, dc, dn, dm = (t.contiguous() for t in (dhs, dc, dn, dm))
+        states = torch.empty((3, b, s, d4 // 4), dtype=torch.float32,
+                             device=gates.device)
+        dgates = torch.empty_like(gates)
+        dc0, dn0, dm0 = (torch.empty_like(c0) for _ in range(3))
+        launch_bwd(gates, c0, n0, m0, dhs, dc, dn, dm, states, dgates, dc0,
+                   dn0, dm0)
+        ops.LAUNCHES["slstm_scan_bwd"] += 1
+        return dgates, dc0, dn0, dm0

@@ -27,12 +27,22 @@ entries into its dict.
 ``compute_dtype`` (default: bfloat16 on the card, float32 on the CPU) is
 the dtype of the matmuls and of the residual stream; it replaces
 ``repro``'s ``REPRO_COMPUTE_DTYPE``.
+
+Training: :func:`lm_loss` is ``repro``'s mean next-token cross-entropy,
+the unembedding and softmax run in sequence chunks so the (B, S, V)
+logits never exist; its gradient is autograd's, through the kernels'
+autograd Functions on the card (``kernels/ops``).  :func:`forward` runs
+each layer under non-reentrant ``torch.utils.checkpoint`` when ``remat``
+and grad mode are on (``repro``'s ``jax.checkpoint`` of a segment's scan
+body): a layer's activations live only during its own forward and its
+recompute.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -134,22 +144,45 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     return params
 
 
-def tree_to(tree, device):
-    """A parameter or cache tree with every tensor moved to ``device``.  A
-    dict that appears more than once (``shared``) is moved once and stays
-    one object."""
-    moved: dict = {}
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of a parameter or cache tree (dicts, lists
+    and tensors), and the matching nodes of ``rest``.  A dict met twice
+    (``shared``) maps once and stays one object."""
+    memo: dict = {}
 
-    def move(node):
+    def go(node, *others):
         if isinstance(node, torch.Tensor):
-            return node.to(device)
+            return fn(node, *others)
         if isinstance(node, dict):
-            if id(node) not in moved:
-                moved[id(node)] = {k: move(v) for k, v in node.items()}
-            return moved[id(node)]
-        return [move(v) for v in node]
+            if id(node) not in memo:
+                memo[id(node)] = {k: go(v, *(o[k] for o in others))
+                                  for k, v in node.items()}
+            return memo[id(node)]
+        if isinstance(node, (list, tuple)):
+            return type(node)(go(v, *(o[i] for o in others))
+                              for i, v in enumerate(node))
+        return node
 
-    return move(tree)
+    return go(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """Each tensor of ``tree`` once, in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_from_leaves(template, leaves):
+    """``template``'s structure with its tensors replaced, in order, by
+    ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), template)
+
+
+def tree_to(tree, device):
+    """A parameter or cache tree with every tensor moved to ``device``."""
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def _cd(params, compute_dtype):
@@ -177,21 +210,31 @@ def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, cd):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, frontend_embeds=None,
-            compute_dtype=None):
+            compute_dtype=None, remat: bool = True):
     """tokens: (B, S) integer -> final hidden states (B, S, D) in the
     compute dtype.  With mamba2 or mLSTM layers S must be a multiple of
     ``cfg.ssm_chunk``.
 
     frontend_embeds: (B, S_fe, D), the stub frontend's prefix (audio
     frames, image patches): ``frontend_embeds @ frontend_proj`` replaces
-    the first S_fe token embeddings (early fusion)."""
+    the first S_fe token embeddings (early fusion).
+
+    remat: under grad mode, each layer runs under non-reentrant
+    ``torch.utils.checkpoint``, its activations recomputed in the
+    backward; without grad mode it changes nothing.  The serving prefill
+    asks for none, as ``repro``'s does."""
     cd = _cd(params, compute_dtype)
     x = params["embed"][tokens.long()].to(cd) * math.sqrt(cfg.d_model)
     if frontend_embeds is not None:
         fe = frontend_embeds.to(cd) @ params["frontend_proj"].to(cd)
         x = torch.cat([fe, x[:, fe.shape[1]:]], dim=1)
+    remat = remat and torch.is_grad_enabled()
     for spec, p in zip(layer_specs(cfg), params["layers"]):
-        x = _apply_layer(x, p, spec, cfg, cd)
+        if remat:
+            x = checkpoint(_apply_layer, x, p, spec, cfg, cd,
+                           use_reentrant=False)
+        else:
+            x = _apply_layer(x, p, spec, cfg, cd)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -200,6 +243,45 @@ def logits(params, h, cfg: ModelConfig, *, compute_dtype=None):
     cd = _cd(params, compute_dtype)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return h.to(cd) @ head.to(cd).T
+
+
+def _chunk_loss(h, labels, head, cfg: ModelConfig, cd):
+    """Σ (logsumexp - gold logit) over one chunk of positions, float32;
+    the padded vocabulary's columns at -1e30."""
+    lg = (h.to(cd) @ head.T).float()
+    cols = torch.arange(cfg.padded_vocab, device=lg.device)
+    lg = torch.where(cols < cfg.vocab, lg, -1e30)
+    gold = lg.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.sum(torch.logsumexp(lg, dim=-1) - gold)
+
+
+def lm_loss(params, tokens, labels, cfg: ModelConfig, *,
+            loss_chunk: int = 512, frontend_embeds=None, compute_dtype=None):
+    """Mean next-token cross-entropy of (B, S) ``labels`` (``repro``'s
+    ``lm_loss``): the unembedding and log-sum-exp run over chunks of
+    min(loss_chunk, S) positions (S must be a multiple of it), each under
+    ``torch.utils.checkpoint``, so only one chunk's (B, chunk, padded
+    vocab) logits live at a time, in the forward and again in the
+    backward; the chunks' float32 sums add in order, divided by B·S."""
+    cd = _cd(params, compute_dtype)
+    h = forward(params, tokens, cfg, frontend_embeds=frontend_embeds,
+                compute_dtype=cd)
+    b, s, _ = h.shape
+    c = min(loss_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"loss chunk {c}")
+    head = (params["embed"] if cfg.tie_embeddings else params["lm_head"]).to(cd)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        hh, ll = h[:, i:i + c], labels[:, i:i + c]
+        if torch.is_grad_enabled():
+            part = checkpoint(_chunk_loss, hh, ll, head, cfg, cd,
+                              use_reentrant=False)
+        else:
+            part = _chunk_loss(hh, ll, head, cfg, cd)
+        total = total + part
+    return total / (b * s)
 
 
 def cache_len(spec: LayerSpec, s_max: int) -> int:

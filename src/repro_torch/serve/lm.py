@@ -25,7 +25,7 @@ from repro_torch.models.transformer import (decode_forward, forward,
 def make_prefill_fn(cfg: ModelConfig, *, compute_dtype=None):
     def prefill(params, tokens, frontend_embeds=None):
         h = forward(params, tokens, cfg, frontend_embeds=frontend_embeds,
-                    compute_dtype=compute_dtype)
+                    compute_dtype=compute_dtype, remat=False)
         out = logits(params, h[:, -1:, :], cfg, compute_dtype=compute_dtype)
         return out[:, 0, :cfg.vocab]
     return prefill

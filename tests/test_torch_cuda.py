@@ -1552,3 +1552,161 @@ def test_ssm_smoke_archs_on_card_equal_cpu(dev, arch):
     out = {w: ServeLoop(cfg, params[w], max_len=32, compute_dtype=f32).generate(
         toks[:, :8].to(w), n_new=16) for w in ("cuda", "cpu")}
     assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# The backward kernels (training)
+# ---------------------------------------------------------------------------
+
+def _plain_attention_grads(q, k, v, do, window, sk_real, dtype):
+    xs = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    out = ref.flash_attention(*xs, window, sk_real)
+    return torch.autograd.grad(out, xs, do.to(dtype))
+
+
+@pytest.mark.parametrize("bh,sq,sk,hd,window,sk_real", FLASH_SHAPES)
+def test_flash_attention_bwd_close_to_float64(dev, bh, sq, sk, hd, window,
+                                              sk_real):
+    """The backward through ops.flash_attention's autograd Function: each
+    of dq, dk, dv within 2× the plain float32 gradient's own max abs error
+    against float64 autograd through the plain version, and within 1e-4 of
+    its largest magnitude; two runs bit for bit; a row with no live key
+    and a key at or past sk_real get exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(bh * sq + hd + 7)
+    q, k, v = (torch.randn((bh, n, hd), generator=gen, device=dev)
+               for n in (sq, sk, sk))
+    do = torch.randn((bh, sq, hd), generator=gen, device=dev)
+    runs = []
+    for _ in range(2):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        ops.reset_counts()
+        out = ops.flash_attention(*xs, window=window, sk_real=sk_real)
+        assert out.grad_fn is not None
+        runs.append(torch.autograd.grad(out, xs, do))
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == 1
+        assert ops.LAUNCHES["flash_attention_bwd"] == 1
+        assert not any(ops.PLAIN.values())
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    want64 = _plain_attention_grads(q, k, v, do, window, sk_real,
+                                    torch.float64)
+    want32 = _plain_attention_grads(q, k, v, do, window, sk_real,
+                                    torch.float32)
+    for got, w64, w32 in zip(runs[0], want64, want32):
+        err = float((got.double() - w64).abs().max())
+        plain_err = float((w32.double() - w64).abs().max())
+        assert err <= 2 * plain_err and err <= 1e-4 * float(w64.abs().max())
+    live_keys = sk if sk_real is None else sk_real
+    assert bool((runs[0][1][:, live_keys:] == 0).all())
+    assert bool((runs[0][2][:, live_keys:] == 0).all())
+    if window > 0 and sq >= live_keys + window:
+        assert bool((runs[0][0][:, live_keys + window - 1:] == 0).all())
+
+
+@pytest.mark.parametrize("hd", [12, 80, 200])
+def test_flash_attention_bwd_pads_any_head_dim(dev, hd):
+    """A head dim without an instantiation: the gradients come back at hd,
+    within 1e-5 of float32 autograd through the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    q, k, v, do = (torch.randn((3, 150, hd), generator=gen, device=dev)
+                   for _ in range(4))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(ops.flash_attention(*xs, window=48), xs, do)
+    want = _plain_attention_grads(q, k, v, do, 48, None, torch.float32)
+    for g, w in zip(got, want):
+        assert g.shape == (3, 150, hd)
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_outputs_keep_the_gradient(dev):
+    """A CUDA operand that needs a gradient gets an output with a grad_fn
+    from both kernels; without grad mode the serving launch runs."""
+    q = torch.randn((2, 40, 32), device=dev, requires_grad=True)
+    assert ops.flash_attention(q, q, q).grad_fn is not None
+    gates = torch.randn((2, 9, 32), device=dev, requires_grad=True)
+    z = torch.zeros((2, 8), device=dev)
+    outs = ops.slstm_scan(gates, z, z, torch.full_like(z, -1e30))
+    assert all(t.grad_fn is not None for t in outs)
+    with torch.no_grad():
+        assert ops.flash_attention(q, q, q).grad_fn is None
+        assert ops.slstm_scan(gates, z, z, z)[0].grad_fn is None
+
+
+SLSTM_BWD_SHAPES = [(2, 300, 100, False), (4, 1, 768, True),
+                    (3, 81, 36, True), (1, 5, 7, True), (2, 97, 64, False)]
+
+
+@pytest.mark.parametrize("b,s,d,cached", SLSTM_BWD_SHAPES)
+def test_slstm_scan_bwd_equals_plain(dev, b, s, d, cached):
+    """The backward through ops.slstm_scan's autograd Function bit for bit
+    against the plain reverse loop on the card, every input's gradient for
+    adjoints of hs and of the final (c, n, m); S/2 + S/2 with the adjoints
+    carried equals one launch."""
+    from repro_torch.kernels import slstm_scan as kern
+
+    gates, state = _slstm_inputs(dev, b, s, d, 2.0, cached, seed=b + s + d)
+    gen = torch.Generator(device=dev).manual_seed(s)
+    adj = (torch.randn((b, s, d), generator=gen, device=dev),
+           *(torch.randn((b, d), generator=gen, device=dev)
+             for _ in range(3)))
+    xs = [t.clone().requires_grad_() for t in (gates, *state)]
+    ops.reset_counts()
+    got = torch.autograd.grad(ops.slstm_scan(*xs), xs, adj)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["slstm_scan"] == 1
+    assert ops.LAUNCHES["slstm_scan_bwd"] == 1
+    assert not any(ops.PLAIN.values())
+    want = ref.slstm_scan_bwd(gates, *state, *adj)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    if s > 1:
+        h = s // 2
+
+        def kernel_bwd(gp, st, a):
+            out = [torch.empty_like(gp), *(torch.empty_like(x) for x in st)]
+            kern.launch_bwd(gp, *st, *(x.contiguous() for x in a),
+                            torch.empty((3, b, gp.shape[1], d), device=dev),
+                            *out)
+            return out
+
+        g1, g2 = gates[:, :h].contiguous(), gates[:, h:].contiguous()
+        mid = ops.slstm_scan(g1, *state)[1:]
+        second = kernel_bwd(g2, mid, (adj[0][:, h:], *adj[1:]))
+        first = kernel_bwd(g1, state, (adj[0][:, :h], *second[1:]))
+        assert torch.equal(torch.cat([first[0], second[0]], dim=1), got[0])
+        assert all(torch.equal(a, w) for a, w in zip(first[1:], got[1:]))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "xlstm-125m", "zamba2-2.7b",
+                                  "granite-moe-3b-a800m"])
+def test_smoke_train_grads_on_card_equal_cpu(dev, arch):
+    """The loss and gradients of a smoke config in float32, the card (the
+    kernels, two forward launches a layer with remat and one backward)
+    against the CPU (autograd through the plain versions): the loss within
+    1e-4, every gradient leaf within 1e-3 of its largest magnitude."""
+    from repro_torch.models.transformer import ATTN_KINDS, layer_specs
+    from repro_torch.train import TrainConfig, make_grad_fn
+    from repro_torch.models.transformer import tree_leaves
+
+    cfg, params = _smoke_pair(arch, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(5))
+    grad_fn = make_grad_fn(cfg, TrainConfig(loss_chunk=16,
+                                            compute_dtype=torch.float32))
+    got = {}
+    for where in ("cuda", "cpu"):
+        ops.reset_counts()
+        t = toks.to(where)
+        got[where] = grad_fn(params[where], t, torch.roll(t, -1, dims=1))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            kinds = [spec.kind for spec in layer_specs(cfg)]
+            n_attn = sum(k in ATTN_KINDS for k in kinds)
+            assert ops.LAUNCHES["flash_attention"] == 2 * n_attn
+            assert ops.LAUNCHES["flash_attention_bwd"] == n_attn
+            assert ops.LAUNCHES["slstm_scan"] == 2 * kinds.count("slstm")
+            assert ops.LAUNCHES["slstm_scan_bwd"] == kinds.count("slstm")
+            assert not any(ops.PLAIN.values())
+    assert abs(float(got["cuda"][0]) - float(got["cpu"][0])) <= 1e-4
+    for g, w in zip(tree_leaves(got["cuda"][1]), tree_leaves(got["cpu"][1])):
+        top = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-3 * top or top == 0.0

@@ -542,8 +542,9 @@ def _check_square_order(bt: int, t_th: int):
 
 
 def test_ops_dispatch_cpu_to_plain_versions():
-    """CPU operands go to the plain versions and count there; nothing
-    launches."""
+    """CPU operands go to the plain versions and count there, and the two
+    backward kernels' count when autograd runs through the plain forward;
+    nothing launches."""
     ids, vals, means, assign = _inputs(20, 13, 300, 37, seed=7)
     ti, tv, tm, ta = _t(ids), _t(vals), _t(means), _t(assign)
     ops.reset_counts()
@@ -566,8 +567,18 @@ def test_ops_dispatch_cpu_to_plain_versions():
     ops.routed_scan(ti, tv, _full(ids), tm, ta[:, None] % 2, i32(0, 20),
                     i32(20, 17), 20)
     z = torch.zeros((2, 3))
-    ops.slstm_scan(torch.ones((2, 5, 12)), z, z, z - 1e30)
-    assert ops.PLAIN == dict.fromkeys(ops.KERNELS, 1)
+    gates = torch.ones((2, 5, 12))
+    ops.slstm_scan(gates, z, z, z - 1e30)
+    backward = ("flash_attention_bwd", "slstm_scan_bwd")
+    assert ops.PLAIN == {k: int(k not in backward) for k in ops.KERNELS}
+    assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
+    ops.reset_counts()
+    qkv.requires_grad_()
+    gates.requires_grad_()
+    ops.flash_attention(qkv, qkv, qkv, window=3).sum().backward()
+    ops.slstm_scan(gates, z, z, z - 1e30)[0].sum().backward()
+    counted = ("flash_attention", "slstm_scan", *backward)
+    assert ops.PLAIN == {k: int(k in counted) for k in ops.KERNELS}
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
     ops.reset_counts()
 
