@@ -3303,17 +3303,30 @@ FLASH_BWD_TIMES = 2.0
 FLASH_BWD_REL = 1e-4
 
 
+# Padded head dims at or below this run the backward's products as fp32
+# fused multiply-adds on the CUDA cores (csrc/flash_attention_bwd.cu:
+# kFma); wider ones as split-TF32 mma.sync on the tensor cores.
+FLASH_BWD_FMA_HD = 32
+
+
 def flash_bwd_work(bh: int, sq: int, sk: int, hd: int, window: int):
-    """(bound, TF32 bound, live pairs) of one backward: 10·hd operations a
+    """(bound, fp32 bound, live pairs) of one backward: 10·hd operations a
     live pair (scores and dP again, dv, dk, dq) against q, k, v, dO, lse
-    read once and dq, dk, dv written once."""
+    read once and dq, dk, dv written once.  ``bound`` is that of the
+    arithmetic the kernel runs at hd, as ``flash_case``'s is of the
+    forward's: TF32_PASSES TF32 products an operation on the tensor cores,
+    or fp32 on the CUDA cores where the padded hd is at most
+    FLASH_BWD_FMA_HD.  The fp32 bound is given beside it."""
+    from repro_torch.kernels import flash_attention as kern
+
     pairs = bh * sum(min(i + 1, sk, window) if window >= 0 else min(i + 1, sk)
                      for i in range(sq))
     n_bytes = 4 * bh * (4 * sq * hd + 3 * sk * hd + sq)
-    hw = peaks()
-    return (bound_ms(n_bytes, 10 * hd * pairs),
-            bound_ms(n_bytes, TF32_PASSES * 10 * hd * pairs, hw.tf32_flops),
-            pairs)
+    fp32 = bound_ms(n_bytes, 10 * hd * pairs)
+    if kern.padded_head_dim(hd) <= FLASH_BWD_FMA_HD:
+        return fp32, fp32, pairs
+    return (bound_ms(n_bytes, TF32_PASSES * 10 * hd * pairs,
+                     peaks().tf32_flops), fp32, pairs)
 
 
 def _plain_attention_grads(torch, q, k, v, do, window: int, dtype,
@@ -3410,7 +3423,7 @@ def flash_bwd_case(torch, what, bh, sq, sk, hd, window, gen, timed: bool):
         fwd[with_lse].append(time_ms(torch, lambda: kern.launch(
             qp, kp, vp, window, sk, o, scale, lse if with_lse else None)))
     dq, dk, dv = (torch.empty_like(t) for t in (qp, kp, vp))
-    scratch = torch.empty((2, bh, sq), device=dev)
+    scratch = kern.bwd_scratch(bh, sq, sk, window, dev)
     ms = time_ms(torch, lambda: kern.launch_bwd(
         qp, kp, vp, lse, dop, window, sk, scale, dq, dk, dv, scratch))
     del o
@@ -3426,21 +3439,24 @@ def flash_bwd_case(torch, what, bh, sq, sk, hd, window, gen, timed: bool):
     library_ms = time_ms(torch, lambda: torch.autograd.grad(
         lib_out, xs, do, retain_graph=True), reps=3)
     del xs, lib_out
-    bound, tf32_bound, pairs = flash_bwd_work(bh, sq, sk, hd, window)
+    bound, fp32_bound, pairs = flash_bwd_work(bh, sq, sk, hd, window)
     rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound=bound,
-               tf32_bound_ms=tf32_bound[0], live_pairs=pairs,
+               fp32_bound_ms=fp32_bound[0], live_pairs=pairs,
                forward_ms=fwd[False], forward_lse_ms=fwd[True])
+    how = (f"{TF32_PASSES} TF32 passes on the tensor cores"
+           if bound is not fp32_bound else "fp32 on the CUDA cores")
     log(f"    {ms:.3f} ms (plain {plain_ms:.3f} ms, sdpa float32 backward "
         f"{library_ms:.3f} ms); bound {bound[0]:.4f} ms by {bound[1]} in "
-        f"fp32 on the CUDA cores ({bound[0] / ms:.1%} of it), "
-        f"{tf32_bound[0]:.4f} ms in {TF32_PASSES} TF32 passes; {pairs} live "
-        f"pairs; the forward without lse {fwd[False]} ms, with it "
-        f"{fwd[True]} ms (in turns)")
+        f"{how} ({bound[0] / ms:.1%} of it), {fp32_bound[0]:.4f} ms in "
+        f"fp32 on the CUDA cores ({fp32_bound[0] / ms:.1%} of it); "
+        f"{pairs} live pairs; scratch "
+        f"{scratch.numel() * 4 / 2**30:.3f} GiB; the forward without lse "
+        f"{fwd[False]} ms, with it {fwd[True]} ms (in turns)")
     return rec
 
 
 def log_bwd_resources() -> dict:
-    """Registers, spills and shared memory of the two backward kernels
+    """Registers, spills and shared memory of the backward kernels
     (ptxas); fails on a spill."""
     import re
 
@@ -3451,9 +3467,10 @@ def log_bwd_resources() -> dict:
     for name in ("flash_attention_bwd", "slstm_scan_bwd"):
         for r in _build.ptxas_report(name):
             m = re.search(r"ILi(\d+)E", r["kernel"])
+            launch = [n for n in kern.BWD_KERNELS if n in r["kernel"]]
             extra = ""
-            if name == "flash_attention_bwd" and "flash_bwd_kv" in r["kernel"]:
-                smem, blocks = kern.resources(int(m.group(1)), backward=True)
+            if name == "flash_attention_bwd" and launch:
+                smem, blocks = kern.bwd_resources(int(m.group(1)))[launch[0]]
                 extra = f"; {smem} B shared memory, {blocks} block(s) an SM"
             log(f"  {r['kernel']}: {r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, loads {r['spill_loads']} B{extra}")
@@ -3479,7 +3496,7 @@ def flash_bwd_rows(torch, seed: int, batch: int) -> dict:
             row = rec
     row = dict(row)
     row["max_abs_err"] = max(r["max_abs_err"] for r in by_case.values())
-    row["extra"] = dict(tf32_bound_ms=row.pop("tf32_bound_ms"),
+    row["extra"] = dict(fp32_bound_ms=row.pop("fp32_bound_ms"),
                         err_over_plain=max(r["err_ratio"]
                                            for r in by_case.values()),
                         by_case=by_case)
@@ -3586,7 +3603,7 @@ def train_kernel_phase(torch, seed: int, batch: int) -> dict:
     res = log_bwd_resources()
     rows = {"flash_attention_bwd": flash_bwd_rows(torch, seed, batch),
             "slstm_scan_bwd": slstm_bwd_rows(torch, seed)}
-    for name, key in (("flash_attention_bwd", "flash_bwd_kv"),
+    for name, key in (("flash_attention_bwd", "flash_bwd_"),
                       ("slstm_scan_bwd", "slstm_bwd_kernel")):
         regs = {k: r["registers"] for k, r in res.items() if key in k}
         rows[name]["extra"]["registers"] = regs

@@ -52,10 +52,21 @@ its backward is ``csrc/flash_attention_bwd.cu``, plain version
 :func:`repro_torch.kernels.ref.flash_attention_bwd`.  ``repro`` has no
 backward kernel: it differentiates its jnp attention
 (``models/layers.py:_attn_core``), whose gradient the backward computes.
-It runs in fp32 on the CUDA cores, two launches (each row's D and
-normaliser, then dq, by query tiles; then dk and dv by key tiles), no
-atomics, so two runs give the same bits; why D and the normaliser are its
-own sums, and what bounds it, is in the source's note.
+The backward is bound by its operations (10·hd a live pair) and runs
+them as the forward does, split-TF32 ``mma.sync`` on the tensor cores
+(at hd 16 and 32, where that misses autograd's accuracy, fp32 fused
+multiply-adds on the CUDA cores).
+Each row's normaliser and D need the whole row before any dS, which
+would have the scores and dP computed two or three times (up to 18·hd a
+pair); this design computes them once: three launches, no atomics, so
+two runs give the same bits.
+The first, by query tiles, writes P~ = exp(s - lse) and dP of every live
+(64 queries × 32 keys) block to a scratch (:func:`bwd_scratch`, 8 bytes
+a live pair, at most 1 GiB unless one head needs more: the launches run
+over slices of heads) and sums each row's normaliser and D in double; the second,
+by key tiles, reads them back for dv = Pᵀ·dO and dk = dSᵀ·q; the third,
+by query tiles, for dq = dS·k.  Why the normaliser and D are its own sums,
+and the measured split of its time, is in the source's note.
 """
 from __future__ import annotations
 
@@ -83,9 +94,14 @@ _BWD_SIG = {
     "flash_attention_bwd_launch": (_build.c_int, [
         *[_build.ptr] * 9, *[_build.c_int] * 6, _build.c_float,
         _build.ptr]),
+    "flash_attention_bwd_scratch_floats": (_build.c_longlong, [
+        *[_build.c_int] * 4]),
     "flash_attention_bwd_resources": (_build.c_int, [
-        _build.c_int, _build.ptr, _build.ptr]),
+        _build.c_int, _build.c_int, _build.ptr, _build.ptr]),
 }
+
+# The backward's three launches, in order (``bwd_resources``).
+BWD_KERNELS = ("flash_bwd_scores", "flash_bwd_kv", "flash_bwd_q")
 
 
 def library():
@@ -96,18 +112,46 @@ def bwd_library():
     return _build.load("flash_attention_bwd", _BWD_SIG)
 
 
-def resources(hd: int, backward: bool = False) -> tuple[int, int]:
-    """(dynamic shared bytes, blocks an SM) of the instantiation for hd,
-    of the forward or of the backward's key launch."""
+def resources(hd: int) -> tuple[int, int]:
+    """(dynamic shared bytes, blocks an SM) of the forward's instantiation
+    for hd."""
     import ctypes
 
-    name = "flash_attention_bwd" if backward else "flash_attention"
-    lib = bwd_library() if backward else library()
+    lib = library()
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    rc = getattr(lib, f"{name}_resources")(hd, ctypes.byref(smem),
-                                           ctypes.byref(blocks))
-    _build.check(lib, name, rc)
+    rc = lib.flash_attention_resources(hd, ctypes.byref(smem),
+                                       ctypes.byref(blocks))
+    _build.check(lib, "flash_attention", rc)
     return smem.value, blocks.value
+
+
+def bwd_resources(hd: int) -> dict[str, tuple[int, int]]:
+    """{launch: (dynamic shared bytes, blocks an SM)} of the backward's
+    three launches at hd."""
+    import ctypes
+
+    lib = bwd_library()
+    out = {}
+    for which, name in enumerate(BWD_KERNELS):
+        smem, blocks = ctypes.c_int(), ctypes.c_int()
+        rc = lib.flash_attention_bwd_resources(
+            hd, which, ctypes.byref(smem), ctypes.byref(blocks))
+        _build.check(lib, "flash_attention_bwd", rc)
+        out[name] = (smem.value, blocks.value)
+    return out
+
+
+def bwd_scratch(bh: int, sq: int, sk_real: int, window: int, device):
+    """The backward's float32 scratch: P~ and dP of every storage block
+    the mask leaves live, then each row's D and Z, for one slice of heads
+    (8 bytes a live pair and some: 0.55 GB at (8, 4096, 256) full causal,
+    0.15 GB at window 512).  The launches run over slices of as many heads
+    as fit in 1 GiB, so it stays within that whatever ``bh``, unless one
+    head alone needs more: under full causal attention a head takes
+    ≈ 4·Sq² bytes, 1.08 GB at Sq 16,384 and 4.3 GB at 32,768."""
+    n = bwd_library().flash_attention_bwd_scratch_floats(bh, sq, sk_real,
+                                                         window)
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def padded_head_dim(hd: int) -> int:
@@ -137,10 +181,10 @@ def launch(q, k, v, window: int, sk_real: int, out, scale: float,
 
 def launch_bwd(q, k, v, lse, do, window: int, sk_real: int, scale: float,
                dq, dk, dv, scratch) -> None:
-    """The backward's two launches on the current stream: q, do, dq (BH,
-    Sq, hd), k, v, dk, dv (BH, Sk, hd), lse (BH, Sq) and the scratch (2,
-    BH, Sq) (each row's D and Z), all float32, contiguous, at an
-    instantiated hd."""
+    """The backward's three launches on the current stream: q, do, dq
+    (BH, Sq, hd), k, v, dk, dv (BH, Sk, hd), lse (BH, Sq) and the scratch
+    (:func:`bwd_scratch`), all float32, contiguous, at an instantiated
+    hd."""
     lib = bwd_library()
     bh, sq, hd = q.shape
     rc = lib.flash_attention_bwd_launch(
@@ -194,8 +238,8 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = ((torch.empty_like if run else torch.zeros_like)(t)
                       for t in (q, k, v))
         if run:
-            scratch = torch.empty((2, bh, sq), dtype=torch.float32,
-                                  device=q.device)
+            scratch = bwd_scratch(bh, sq, ctx.sk_real, ctx.window,
+                                  q.device)
             launch_bwd(q, k, v, lse, dout.contiguous(), ctx.window,
                        ctx.sk_real, ctx.scale, dq, dk, dv, scratch)
             ops.LAUNCHES["flash_attention_bwd"] += 1

@@ -55,6 +55,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.slstm_scan import (  # noqa: E402
     TILE as SLSTM_TILE, WALK_BELOW as SLSTM_WALK)
@@ -1572,6 +1573,83 @@ def test_flash_attention_bwd_close_to_float64(dev, bh, sq, sk, hd, window,
     against float64 autograd through the plain version, and within 1e-4 of
     its largest magnitude; two runs bit for bit; a row with no live key
     and a key at or past sk_real get exactly 0."""
+    _check_bwd_close_to_float64(dev, bh, sq, sk, hd, window, sk_real)
+
+
+# The backward's tiles (csrc/flash_attention_bwd.cu: kBQ, kBK, kKvRows):
+# storage blocks of QT queries × KT keys, the key launch's query tiles of
+# KV rows.
+QT, KT, KV = 64, 32, 32
+FLASH_BWD_EDGES = [
+    # Sq, Sk not multiples of either tile, Sq != Sk
+    (2, QT + KT + 1, 2 * QT + 3, 64, -1, None),
+    (2, 2 * QT + 5, QT + KT - 1, 128, -1, None),
+    (3, KV - 1, KT + 1, 32, -1, None),
+    # window 1 (every row one key) and windows just above each tile
+    (2, 2 * QT + 7, 2 * QT + 7, 256, 1, None),
+    (2, 3 * QT + 1, 3 * QT + 1, 64, KT + 1, None),
+    (2, 3 * QT + 1, 3 * QT + 1, 256, QT + 1, None),
+    (2, 4 * QT, 4 * QT, 128, KV + 1, None),
+    # sk_real < Sk: whole key tiles and part of one past it
+    (2, 3 * QT, 3 * QT, 64, -1, KT + 5),
+    (2, 2 * QT + 9, 3 * QT, 256, 2 * KT + 3, QT + 1),
+    # every instantiated hd on a ragged causal shape
+    *[(2, 2 * QT + 11, 2 * QT + 11, hd, -1, None) for hd in FA.HEAD_DIMS],
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,hd,window,sk_real", FLASH_BWD_EDGES)
+def test_flash_attention_bwd_edges_close_to_float64(dev, bh, sq, sk, hd,
+                                                    window, sk_real):
+    """The backward at the edges of its tiles, held as
+    test_flash_attention_bwd_close_to_float64 holds it."""
+    _check_bwd_close_to_float64(dev, bh, sq, sk, hd, window, sk_real)
+
+
+@pytest.mark.parametrize("hd,window", [(64, -1), (256, -1), (32, 1),
+                                       (256, 1)])
+def test_flash_attention_bwd_one_live_key_gives_zero_dq(dev, hd, window):
+    """A row with one live key has P = 1 and dS = 0 exactly, so its dq is
+    exactly 0: row 0 of a causal case, every row at window 1 (where every
+    dk is 0 too)."""
+    gen = torch.Generator(device=dev).manual_seed(hd + window)
+    q, k, v, do = (torch.randn((3, 2 * QT + 5, hd), generator=gen,
+                               device=dev) for _ in range(4))
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    dq, dk, _ = torch.autograd.grad(ops.flash_attention(*xs, window=window),
+                                    xs, do)
+    assert bool((dq[:, 0] == 0).all())
+    if window == 1:
+        assert bool((dq == 0).all()) and bool((dk == 0).all())
+    else:
+        assert bool((dq[:, 1:].abs().amax(dim=-1) > 0).all())
+
+
+# Shapes whose heads' scratch would pass 1 GiB together, so the backward
+# runs over slices of heads: 4 heads at S 8192 in slices of 3 and 1, and
+# heads at S 16,384 that need more than 1 GiB each, a slice apiece.
+FLASH_BWD_SLICED = [(4, 8192, 64), (2, 16384, 32)]
+
+
+@pytest.mark.parametrize("bh,s,hd", FLASH_BWD_SLICED)
+def test_flash_attention_bwd_runs_over_slices_of_heads(dev, bh, s, hd):
+    """Full causal at long S: the scratch holds at most 1 GiB or one
+    head's, whatever BH; the gradients meet the float64 bars and equal,
+    bit for bit, each head's run alone."""
+    floats = FA.bwd_library().flash_attention_bwd_scratch_floats
+    one = floats(1, s, s, -1)
+    assert floats(bh, s, s, -1) < bh * one
+    assert floats(bh, s, s, -1) * 4 <= max(2**30, one * 4)
+    (q, k, v, do), got = _check_bwd_close_to_float64(dev, bh, s, s, hd, -1,
+                                                     None)
+    for b in range(bh):
+        xs = [t[b:b + 1].clone().requires_grad_() for t in (q, k, v)]
+        alone = torch.autograd.grad(ops.flash_attention(*xs), xs,
+                                    do[b:b + 1])
+        assert all(torch.equal(a, g[b:b + 1]) for a, g in zip(alone, got))
+
+
+def _check_bwd_close_to_float64(dev, bh, sq, sk, hd, window, sk_real):
     gen = torch.Generator(device=dev).manual_seed(bh * sq + hd + 7)
     q, k, v = (torch.randn((bh, n, hd), generator=gen, device=dev)
                for n in (sq, sk, sk))
@@ -1601,6 +1679,7 @@ def test_flash_attention_bwd_close_to_float64(dev, bh, sq, sk, hd, window,
     assert bool((runs[0][2][:, live_keys:] == 0).all())
     if window > 0 and sq >= live_keys + window:
         assert bool((runs[0][0][:, live_keys + window - 1:] == 0).all())
+    return (q, k, v, do), runs[0]
 
 
 @pytest.mark.parametrize("hd", [12, 80, 200])

@@ -610,6 +610,22 @@ def test_slstm_scan_geometry_matches_the_cuda_source():
     assert kern.blocks(4, 768, s - 1) == 4 * 768 // 32
 
 
+def test_flash_attention_bwd_launches_match_the_cuda_source():
+    """The three launches of csrc/flash_attention_bwd.cu are the kernels
+    BWD_KERNELS of kernels/flash_attention.py names, in order: chip_smoke.py
+    and scripts/flash_bwd_probe.py read each launch's resources and time
+    by those names."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attention as kern
+
+    src = (Path(kern.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention_bwd.cu").read_text()
+    kernels = re.findall(r"^(flash_bwd_\w+)\(", src, re.M)
+    assert tuple(kernels) == kern.BWD_KERNELS
+
+
 def test_ops_validate_operands():
     ids, vals, means, assign = _inputs(8, 4, 30, 5, seed=8)
     with pytest.raises(TypeError, match="ids must be"):
