@@ -265,11 +265,15 @@ attention-family archs of ``configs/registry.py``, then the two SSM archs):
              at most 2× the plain float32 one's and 1e-4 of its largest
              magnitude, two runs bit for bit; slstm_scan_bwd against the
              plain reverse loop bit for bit (or within 1e-6 of the largest
-             gradient, named) at (2, 4096, 768) from the zero state, S 1
-             and D 100 from cached states, and S/2 + S/2 with the adjoints
-             carried equal to one launch; times from CUDA events beside the
-             plain backward, sdpa's float32 backward (flash) and the bounds,
-             registers, spills (none allowed) and shared memory; (b) every
+             gradient, named) at (2, 4096, 768) from the zero state, S 1,
+             D 100, the walk's last S and an S no multiple of the tile
+             from cached states, two runs bit for bit, and S/2 + S/2 with
+             the adjoints carried equal to one launch, its two launches'
+             device times from the profiler (the forward again, the
+             adjoints) and the adjoint chains' floor (``scripts/slstm_floor.cu``); times from
+             CUDA events beside the plain backward, sdpa's float32 backward
+             (flash) and the bounds, registers, spills (none allowed) and
+             shared memory; (b) every
              smoke config's loss and gradients in float32 on the card,
              kernels (two forward launches a layer with remat, one
              backward) against the plain versions, the loss within 1e-4 and
@@ -3014,7 +3018,8 @@ CTYPES_KERNELS = {"flash_kernel": "flash_attention",
                   "slstm_scan_kernel": "slstm_scan",
                   "slstm_walk_kernel": "slstm_scan",
                   "flash_bwd_": "flash_attention_bwd",
-                  "slstm_bwd_kernel": "slstm_scan_bwd"}
+                  "slstm_bwd_": "slstm_scan_bwd",
+                  "slstm_states_kernel": "slstm_scan_bwd"}
 MATMUL_OPS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
               "aten::matmul", "aten::linear", "aten::einsum"}
 COPY_OPS = {"aten::copy_", "aten::_to_copy", "aten::to", "aten::clone",
@@ -3510,6 +3515,56 @@ SLSTM_BWD_CASES = (("xlstm-125m prefill", 2, 4096, 768, False),
                    ("D not a multiple of 32", 3, 200, 100, True))
 
 
+def slstm_bwd_cases(tile: int, walk: int) -> tuple:
+    """SLSTM_BWD_CASES and the backward's edges for its tiles of ``tile``
+    steps and its walk below ``walk`` steps: the walk's last S, and an S
+    that is no multiple of the tile."""
+    return SLSTM_BWD_CASES + (
+        ("S = W - 1, the walk's last", 4, walk - 1, 768, True),
+        ("S = 3T + 5, no multiple of the tile", 2, 3 * tile + 5, 768, True))
+
+
+def launch_device_ms(torch, fn, names, calls: int = 5) -> dict | None:
+    """{name: mean device ms a launch} of the kernels whose names contain
+    each of ``names``, from ``calls`` calls of ``fn`` in one torch.profiler
+    run (after a warm-up call).  A profile can miss launches: up to three
+    runs until every name shows, else None."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms, seen = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for name in names:
+                if name in e.name:
+                    ms[name] += e.time_range.elapsed_us() / 1e3
+                    seen[name] += 1
+        if all(seen.values()):
+            return {name: ms[name] / seen[name] for name in names}
+    return None
+
+
+def slstm_adjoint_floor(torch, seed: int, b: int, s: int, d: int) -> dict:
+    """The adjoint chains' floor at (b, s, d): chain A's gc, gn and chain
+    B's gm alone from registers (``scripts/slstm_floor.cu``, built here),
+    b·d / 32 warps over s steps."""
+    from scripts.sketch_sim_probe import compile_all
+    from scripts.slstm_probe import FLOOR_SOURCE, adjoint_floor_ms
+
+    lib = compile_all([FLOOR_SOURCE])[FLOOR_SOURCE]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 29)
+    return adjoint_floor_ms(torch, lib, b * d // 32, s, gen)
+
+
 def slstm_bwd_rows(torch, seed: int) -> dict:
     """slstm_scan_bwd through ``ops.slstm_scan``'s autograd Function
     against the plain reverse loop, bit for bit, and S/2 + S/2 with the
@@ -3521,7 +3576,8 @@ def slstm_bwd_rows(torch, seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 28)
     row = None
-    for what, b, s, d, cached in SLSTM_BWD_CASES:
+    for what, b, s, d, cached in slstm_bwd_cases(kern.BWD_TILE,
+                                                 kern.BWD_WALK_BELOW):
         gates = torch.randn((b, s, 4 * d), generator=gen, device=dev)
         state = slstm_state(torch, b, d, gen, cached)
         adj = (torch.randn((b, s, d), generator=gen, device=dev),
@@ -3548,6 +3604,9 @@ def slstm_bwd_rows(torch, seed: int) -> dict:
                                                       1e-30))
         require(same or err <= 1e-6, f"slstm_scan_bwd {what}: max error "
                 f"{err:.3g} of the largest gradient (bound 1e-6)")
+        again = torch.autograd.grad(ops.slstm_scan(*xs), xs, adj)
+        require(all(torch.equal(a, g) for a, g in zip(again, got)),
+                f"slstm_scan_bwd {what}: two runs differ")
         carried = ""
         if s > 1:
             h = s // 2
@@ -3571,7 +3630,9 @@ def slstm_bwd_rows(torch, seed: int) -> dict:
             carried = "; S/2 + S/2 with the adjoints carried equals one launch"
         log(f"  slstm_scan_bwd {what} (B {b}, S {s}, D {d}): "
             f"{'bit for bit' if same else f'max err {err:.3g} of the largest'}"
-            f" against the plain reverse loop{carried}")
+            f" against the plain reverse loop, two runs the same{carried}; "
+            f"{kern.bwd_blocks(b, d, s)} blocks "
+            f"({'walk' if s < kern.BWD_WALK_BELOW else 'tiles'})")
         if what == "xlstm-125m prefill":
             states = torch.empty((3, b, s, d), device=dev)
             outs = [torch.empty_like(t) for t in (gates, *state)]
@@ -3581,15 +3642,42 @@ def slstm_bwd_rows(torch, seed: int) -> dict:
             # some 45 float operations a channel a step: the forward again
             # (12) and the adjoints (33)
             bound = bound_ms(n_bytes, 45 * b * s * d)
+            names = ("slstm_states_kernel", "slstm_bwd_tiles_kernel")
+            split = launch_device_ms(torch, lambda: kern.launch_bwd(*args),
+                                     names) or dict.fromkeys(names)
+            smem, per_sm = kern.bwd_resources()
+            floor = slstm_adjoint_floor(torch, seed, b, s, d)
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
                        library_ms=None, bound=bound,
                        extra=dict(bitwise=same, dependent_steps=2 * s,
                                   ns_per_step=ms * 1e6 / (2 * s),
-                                  scratch_bytes=12 * b * s * d))
+                                  scratch_bytes=12 * b * s * d,
+                                  forward_again_ms=split[
+                                      "slstm_states_kernel"],
+                                  adjoints_ms=split["slstm_bwd_tiles_kernel"],
+                                  blocks=kern.bwd_blocks(b, d, s),
+                                  warps=kern.BWD_WARPS, tile=kern.BWD_TILE,
+                                  smem_bytes=smem, blocks_per_sm=per_sm,
+                                  walk_below=kern.BWD_WALK_BELOW,
+                                  adjoint_floor_ns_per_step={
+                                      "gc_gn": floor["gc_gn"]["ns_per_step"],
+                                      "gm": floor["gm"]["ns_per_step"]}))
             log(f"    {ms:.3f} ms, {ms * 1e6 / (2 * s):.1f} ns a step over "
                 f"{2 * s} dependent steps; plain reverse loop "
                 f"{plain_s * 1e3:.1f} ms; bound {bound[0]:.4f} ms by "
-                f"{bound[1]}")
+                f"{bound[1]} ({bound[0] / ms:.1%} of it); profiled, a "
+                f"launch: the forward again {split['slstm_states_kernel']} "
+                f"ms, the adjoints {split['slstm_bwd_tiles_kernel']} ms "
+                f"(None: a profile missed it thrice); "
+                f"{kern.bwd_blocks(b, d, s)} blocks of {kern.BWD_WARPS} "
+                f"warps (two chain warps, {kern.BWD_WARPS - 2} workers) over "
+                f"{kern.BWD_CHANNELS} channels, tiles of {kern.BWD_TILE} "
+                f"steps, {smem} B of shared memory a block, {per_sm} "
+                f"block(s) an SM; scratch {12 * b * s * d} B; the adjoint "
+                f"chains' floor (registers only, {floor['groups']} warps "
+                f"over {s} steps): gc, gn "
+                f"{floor['gc_gn']['ns_per_step']:.2f} ns a step, gm "
+                f"{floor['gm']['ns_per_step']:.2f} ns a step")
         else:
             row["max_abs_err"] = max(row["max_abs_err"], err)
             row["extra"]["bitwise"] = row["extra"]["bitwise"] and same
@@ -3603,9 +3691,11 @@ def train_kernel_phase(torch, seed: int, batch: int) -> dict:
     res = log_bwd_resources()
     rows = {"flash_attention_bwd": flash_bwd_rows(torch, seed, batch),
             "slstm_scan_bwd": slstm_bwd_rows(torch, seed)}
-    for name, key in (("flash_attention_bwd", "flash_bwd_"),
-                      ("slstm_scan_bwd", "slstm_bwd_kernel")):
-        regs = {k: r["registers"] for k, r in res.items() if key in k}
+    for name, keys in (("flash_attention_bwd", ("flash_bwd_",)),
+                       ("slstm_scan_bwd", ("slstm_bwd_",
+                                           "slstm_states_kernel"))):
+        regs = {k: r["registers"] for k, r in res.items()
+                if any(key in k for key in keys)}
         rows[name]["extra"]["registers"] = regs
     log(f"train (a) passed in {time.perf_counter() - t0:.1f} s")
     return rows

@@ -54,7 +54,7 @@ def compile_all(sources: list[Path]) -> dict[Path, ctypes.CDLL]:
     PROBE_BUILD.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for src in sources:
-        tag = hashlib.sha256(src.read_bytes()
+        tag = hashlib.sha256(_build.source_bytes(src)
                              + " ".join(_build.NVCC_FLAGS).encode())
         out = PROBE_BUILD / f"{src.stem}-{tag.hexdigest()[:12]}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)]

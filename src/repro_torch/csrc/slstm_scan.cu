@@ -50,6 +50,13 @@
 // a walk of a thread a channel instead (slstm_walk_kernel, below): the
 // ring's prologue and epilogue cost more than such a walk.
 //
+// The backward (slstm_scan_bwd.cu, which includes this file) runs the
+// same tiles once more in states mode (slstm_states_kernel): no o copies
+// and no output quotient, the workers store the state after every step
+// (m in stage ex, c and n in stage out) into c, n, m planes of B·S·D
+// floats instead of hs.  The serving launch (slstm_scan_kernel) is the
+// same code with that mode compiled out.
+//
 // Why one launch, and sequential.  A decode step is a launch of S = 1
 // from the cached state, so a split into passes would triple its launches
 // and send five (B, S, D) intermediates through device memory.  A parallel
@@ -126,7 +133,8 @@ __device__ __forceinline__ void cp_async_wait_ahead() {
 
 struct Tile {
   const float* g;  // gates of row b, channel d0
-  float* h;        // hs of row b, channel d0
+  float* h;        // hs (states mode: the c plane) of row b, channel d0
+  size_t plane;    // states mode: floats from the c plane to the n plane
   int S, D, d0, n_tiles;
   bool vec;        // 16-byte copies: D % 4 == 0 and gates 16-byte aligned
 
@@ -212,9 +220,27 @@ __device__ __forceinline__ float4* quads(float* smem, int k) {
   return reinterpret_cast<float4*>(smem + kEx + (k & 1) * 4 * kTC);
 }
 
-// Stage ex of tile k (steps < n), by worker w.
-template <bool kFull>
-__device__ __forceinline__ void stage_ex(float* smem, int k, int n, int w,
+// Where worker w's rows of a tile land in hs, the same in every tile:
+// row j's offset from the tile's first step, or -1 past the rows or
+// past D.
+struct OutRows {
+  int off[kPer];
+
+  __device__ __forceinline__ OutRows(const Tile& a, int w, int lane) {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int r = w + j * kWorkers, x = r * 32 + lane;
+      const int t = x / kChannels, ch = x - t * kChannels;
+      off[j] = r < kRows && a.d0 + ch < a.D ? t * a.D + ch : -1;
+    }
+  }
+};
+
+// Stage ex of tile k (steps < n), by worker w; in states mode it also
+// stores m.
+template <bool kFull, bool kStates>
+__device__ __forceinline__ void stage_ex(const Tile& a, const OutRows& rows,
+                                         float* smem, int k, int n, int w,
                                          int lane) {
   const float* z = smem + kZif + (k % kZifSlots) * 3 * kTC;
   const float* iv = z + kTC;
@@ -235,36 +261,37 @@ __device__ __forceinline__ void stage_ex(float* smem, int k, int n, int w,
       const float i_e = expf(__fsub_rn(vi[j], m_new));
       const float f_e = expf(__fsub_rn(vfm[j].x, m_new));
       ex[x] = make_float4(f_e, __fmul_rn(i_e, tanhf(vz[j])), i_e, 0.0f);
+      if (kStates && rows.off[j] >= 0)
+        a.h[2 * a.plane + static_cast<size_t>(k) * kTile * a.D +
+            rows.off[j]] = m_new;
     }
   }
 }
 
-// Where worker w's rows of a tile land in hs, the same in every tile:
-// row j's offset from the tile's first step, or -1 past the rows or
-// past D.
-struct OutRows {
-  int off[kPer];
-
-  __device__ __forceinline__ OutRows(const Tile& a, int w, int lane) {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int r = w + j * kWorkers, x = r * 32 + lane;
-      const int t = x / kChannels, ch = x - t * kChannels;
-      off[j] = r < kRows && a.d0 + ch < a.D ? t * a.D + ch : -1;
-    }
-  }
-};
-
 // Stage out of tile k (steps < n), by worker w: h into hs.  Every row's
 // exponential first, then its quotients, then the stores: the quotients'
 // slow-path branches then split no exponential from the next, and no
-// quotient sinks into a store's branch.
-template <bool kFull>
+// quotient sinks into a store's branch.  In states mode: c and n into
+// their planes instead.
+template <bool kFull, bool kStates>
 __device__ __forceinline__ void stage_out(const Tile& a, const OutRows& rows,
                                           float* smem, int k, int n, int w,
                                           int lane) {
-  const float* o = smem + kO + (k % kOSlots) * kTC;
   const float2* cn = pairs(smem, kCn, k);
+  if (kStates) {
+    float* st = a.h + static_cast<size_t>(k) * kTile * a.D;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int r = w + j * kWorkers, x = r * 32 + lane;
+      if (row_in<kFull>(r, x, n) && rows.off[j] >= 0) {
+        const float2 v = cn[x];
+        st[rows.off[j]] = v.x;
+        st[a.plane + rows.off[j]] = v.y;
+      }
+    }
+    return;
+  }
+  const float* o = smem + kO + (k % kOSlots) * kTC;
   float e[kPer], hv[kPer];
   float2 vcn[kPer];
 #pragma unroll
@@ -357,18 +384,21 @@ __device__ __forceinline__ void pass_cn(float* smem, int k, int n, int ch,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-slstm_scan_kernel(const float* __restrict__ gates,
-                  const float* __restrict__ c0, const float* __restrict__ n0,
-                  const float* __restrict__ m0, int S, int D, int vec,
-                  float* __restrict__ hs, float* __restrict__ c_out,
-                  float* __restrict__ n_out, float* __restrict__ m_out) {
+// The tiles of one block; in states mode hs is the (3, B, S, D) states
+// scratch and the final state is not written.
+template <bool kStates>
+__device__ __forceinline__ void scan_tiles(
+    const float* __restrict__ gates, const float* __restrict__ c0,
+    const float* __restrict__ n0, const float* __restrict__ m0, int S, int D,
+    int vec, float* __restrict__ hs, float* __restrict__ c_out,
+    float* __restrict__ n_out, float* __restrict__ m_out) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y, d0 = blockIdx.x * kChannels;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   Tile a;
   a.g = gates + static_cast<size_t>(b) * S * 4 * D + d0;
   a.h = hs + static_cast<size_t>(b) * S * D + d0;
+  a.plane = static_cast<size_t>(gridDim.y) * S * D;
   a.S = S, a.D = D, a.d0 = d0, a.vec = vec != 0;
   a.n_tiles = (S + kTile - 1) / kTile;
 
@@ -404,7 +434,8 @@ slstm_scan_kernel(const float* __restrict__ gates,
       else if (n_cn)
         pass_cn<false>(smem, p - 2, n_cn, ch, c, n);
     } else if (warp >= 2) {
-      const int kz = p + kAhead, ko = p + kAhead - 3;
+      // states mode copies no o: tile -1 is empty
+      const int kz = p + kAhead, ko = kStates ? -1 : p + kAhead - 3;
       float* zif = smem + kZif + (kz % kZifSlots) * 3 * kTC;
       float* o = smem + kO + (ko % kOSlots) * kTC;
       if (a.steps(kz)) {
@@ -422,21 +453,42 @@ slstm_scan_kernel(const float* __restrict__ gates,
       cp_async_commit();
       const int ne = a.steps(p - 1), no = a.steps(p - 3);
       if (ne == kTile)
-        stage_ex<true>(smem, p - 1, ne, w, lane);
+        stage_ex<true, kStates>(a, rows, smem, p - 1, ne, w, lane);
       else if (ne)
-        stage_ex<false>(smem, p - 1, ne, w, lane);
+        stage_ex<false, kStates>(a, rows, smem, p - 1, ne, w, lane);
       if (no == kTile)
-        stage_out<true>(a, rows, smem, p - 3, no, w, lane);
+        stage_out<true, kStates>(a, rows, smem, p - 3, no, w, lane);
       else if (no)
-        stage_out<false>(a, rows, smem, p - 3, no, w, lane);
+        stage_out<false, kStates>(a, rows, smem, p - 3, no, w, lane);
       cp_async_wait_ahead();
     }
     __syncthreads();
   }
-  if (live) {
+  if (!kStates && live) {
     if (warp == 0) m_out[s_idx] = m;
     if (warp == 1) c_out[s_idx] = c, n_out[s_idx] = n;
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+slstm_scan_kernel(const float* __restrict__ gates,
+                  const float* __restrict__ c0, const float* __restrict__ n0,
+                  const float* __restrict__ m0, int S, int D, int vec,
+                  float* __restrict__ hs, float* __restrict__ c_out,
+                  float* __restrict__ n_out, float* __restrict__ m_out) {
+  scan_tiles<false>(gates, c0, n0, m0, S, D, vec, hs, c_out, n_out, m_out);
+}
+
+// The backward's forward again: the state after every step into states
+// (3, B, S, D) float32.
+__global__ void __launch_bounds__(kThreads, 1)
+slstm_states_kernel(const float* __restrict__ gates,
+                    const float* __restrict__ c0,
+                    const float* __restrict__ n0,
+                    const float* __restrict__ m0, int S, int D, int vec,
+                    float* __restrict__ states) {
+  scan_tiles<true>(gates, c0, n0, m0, S, D, vec, states, nullptr, nullptr,
+                   nullptr);
 }
 
 // Scans of fewer than kWalkBelow steps (a decode step is S = 1) skip the
@@ -507,7 +559,11 @@ slstm_walk_kernel(const float* __restrict__ gates,
 }
 
 cudaError_t configure() {
-  return cudaFuncSetAttribute(slstm_scan_kernel,
+  cudaError_t err = cudaFuncSetAttribute(
+      slstm_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(slstm_states_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(kSmemBytes));
 }

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface, compiled for Hopper only (``sm_90a``) into ``build/kernels/`` at
 the root of the checkout.  A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a current build is
-reused.  :func:`build` starts one ``nvcc`` per source, all together.
+source (and of the sources it includes) and flags, so an edited source is
+rebuilt and a current build is reused.  :func:`build` starts one ``nvcc``
+per source, all together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers pass it to :func:`check`, which raises on anything but 0.
@@ -43,8 +44,18 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_bytes(path: Path) -> bytes:
+    """A source's bytes followed by those of every file it includes by
+    a quoted name (``#include "slstm_scan.cu"``), so an edit to either
+    changes the hash."""
+    src = path.read_bytes()
+    for inc in re.findall(rb'^#include "([^"]+)"', src, re.M):
+        src += source_bytes(path.parent / inc.decode())
+    return src
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = source_bytes(CSRC / f"{name}.cu")
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{tag}.so"
 

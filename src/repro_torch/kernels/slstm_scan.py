@@ -39,11 +39,26 @@ Training: :class:`SlstmScan` is the autograd Function that ``kernels/ops``
 routes CUDA operands that need a gradient through; its backward is
 ``csrc/slstm_scan_bwd.cu`` (plain version
 :func:`repro_torch.kernels.ref.slstm_scan_bwd`, the reverse loop, which it
-matches bit for bit): a thread a channel runs the forward again, keeping
-the state after every step in a scratch of 12·B·S·D bytes, then walks
-back in time.  ``repro`` differentiates its ``lax.scan`` with JAX's rules
-(``jnp.maximum`` splits a tie's gradient in half), which the adjoints
-follow.
+matches bit for bit), one C call of two launches.  The forward runs again,
+the tiles above in a states mode that stores the state after every step
+(c, n, m) in a scratch of 12·B·S·D bytes instead of hs.  Then the
+adjoints walk the tiles back in time with the forward's split of roles: a
+block of BWD_CHANNELS channels, chain warp A carrying gc and gn (an add
+and a product each), chain warp B carrying gm (two differences, a product
+and a sum), BWD_WARPS - 2 workers for the elementwise rest in three
+stages, each tile's operands brought into rings of shared memory by
+tensor copies (TMA) that one thread issues.  Of the two ways to run the
+forward again, a second launch with the states through device memory
+was built, not checkpoints a tile and a recompute inside the backward's
+blocks: it is the forward's tiles in another mode, bit for bit by
+construction, where the recompute would need two more chain warps and
+their rings in blocks whose shared memory the adjoints already fill.  It
+costs the scratch's round trip and a third of the backward's time
+(PERF.md §6); the recompute was not built or measured.  Below
+BWD_WALK_BELOW steps one launch of a thread a channel runs both, the
+backward's first design.  ``repro`` differentiates its ``lax.scan`` with
+JAX's rules (``jnp.maximum`` splits a tie's gradient in half), which the
+adjoints follow.
 """
 from __future__ import annotations
 
@@ -63,6 +78,14 @@ TILE = 80
 # Scans of fewer steps (a decode step) launch csrc/slstm_scan.cu's walk of a
 # thread a channel instead of the tiles: its kWalkBelow.
 WALK_BELOW = 64
+# The backward's adjoint tiles: csrc/slstm_scan_bwd.cu's kChannels, kWarps,
+# kTile and kWalkBelow in its namespace bwd (a CPU test holds them equal).
+# Its grid is B · ceil(D / BWD_CHANNELS) blocks of 32 · BWD_WARPS threads;
+# below BWD_WALK_BELOW steps it runs the walk of a thread a channel.
+BWD_CHANNELS = 12
+BWD_WARPS = 8
+BWD_TILE = 64
+BWD_WALK_BELOW = 64
 
 _SIG = {
     "slstm_scan_launch": (_build.c_int, [
@@ -75,6 +98,7 @@ _BWD_SIG = {
     "slstm_scan_bwd_launch": (_build.c_int, [
         *[_build.ptr] * 8, _build.c_int, _build.c_int, _build.c_int,
         *[_build.ptr] * 6]),
+    "slstm_scan_bwd_resources": (_build.c_int, [_build.ptr, _build.ptr]),
 }
 
 
@@ -84,15 +108,33 @@ def blocks(b: int, d: int, s: int) -> int:
     return b * -(-d // (32 if s < WALK_BELOW else CHANNELS))
 
 
-def resources() -> tuple[int, int]:
-    """(dynamic shared bytes a block, blocks an SM) of the kernel."""
+def bwd_blocks(b: int, d: int, s: int) -> int:
+    """Blocks of the backward's adjoint launch (of its one launch, the
+    walk, below BWD_WALK_BELOW steps); its forward again has
+    ``blocks(b, d, WALK_BELOW)``."""
+    return b * -(-d // (32 if s < BWD_WALK_BELOW else BWD_CHANNELS))
+
+
+def _resources(name: str, sig: dict) -> tuple[int, int]:
     import ctypes
 
-    lib = _build.load("slstm_scan", _SIG)
+    lib = _build.load(name, sig)
     smem, per_sm = ctypes.c_int(), ctypes.c_int()
-    rc = lib.slstm_scan_resources(ctypes.byref(smem), ctypes.byref(per_sm))
-    _build.check(lib, "slstm_scan", rc)
+    rc = getattr(lib, f"{name}_resources")(ctypes.byref(smem),
+                                           ctypes.byref(per_sm))
+    _build.check(lib, name, rc)
     return smem.value, per_sm.value
+
+
+def resources() -> tuple[int, int]:
+    """(dynamic shared bytes a block, blocks an SM) of the kernel."""
+    return _resources("slstm_scan", _SIG)
+
+
+def bwd_resources() -> tuple[int, int]:
+    """(dynamic shared bytes a block, blocks an SM) of the backward's
+    adjoint tiles."""
+    return _resources("slstm_scan_bwd", _BWD_SIG)
 
 
 def launch(gates, c0, n0, m0, hs, c, n, m) -> None:

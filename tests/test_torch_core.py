@@ -97,6 +97,89 @@ def test_group_drift_and_loosen_match_repro(k):
         rtol=1e-6, atol=1e-6)
 
 
+def _bracket_case(b, p, d, k, seed):
+    """(ids, vals, nnz, means (K, D)) by the numpy steps of
+    tests/test_pruning.py's ``_make_case``: sorted ids, unit-norm rows over
+    their dense vectors, means with 40% live entries plus 1e-3, unit rows."""
+    rng = np.random.default_rng(seed)
+    ids = np.sort(rng.integers(0, d, (b, p)), axis=1).astype(np.int32)
+    vals = rng.random((b, p)).astype(np.float32)
+    nnz = rng.integers(1, p + 1, b).astype(np.int32)
+    for i in range(b):
+        vals[i, nnz[i]:] = 0.0
+        ids[i, nnz[i]:] = 0
+    for i in range(b):
+        dense = np.zeros(d)
+        np.add.at(dense, ids[i, :nnz[i]], vals[i, :nnz[i]])
+        vals[i] /= max(np.linalg.norm(dense), 1e-9)
+    means = np.where(rng.random((k, d)) < 0.4, rng.random((k, d)), 0.0)
+    means += 1e-3
+    means /= np.linalg.norm(means, axis=1, keepdims=True)
+    return ids, vals, nnz, means.astype(np.float32)
+
+
+def test_bracket_case_gap_is_shared_with_repro():
+    """The case whose bracket check fails in ``repro`` (tests/test_pruning.py:
+    b 2, p 2, d 8, K 9, t_th 0, one drift of scale 2^-7, seed 0): its
+    loosened group bound lies 3.39e-5 under the true group max, above the
+    check's 2e-5 slack.  From ``repro``'s refreshed bound, the port's
+    column dots equal ``repro``'s bit for bit, its drift is within one
+    float32 ulp (the arccos rounded from float64, by design) and its
+    loosened bound within 1e-6; at the failing (row, group) the loosened
+    bound is ``repro``'s bit for bit, so the worst gap is the same number:
+    ``repro``'s bound's, shared by the port, no fault of its own."""
+    from repro.core import StructuralParams as JParams
+    from repro.core import build_mean_index as jbuild
+    from repro.core.assignment import _scan, assignment_step
+    from repro.sparse import SparseDocs
+
+    b, k, scale, seed = 2, 9, 0.0078125, 0
+    ids, vals, nnz, means = _bracket_case(b, 2, 8, k, seed)
+    docs = SparseDocs(ids=jnp.asarray(ids), vals=jnp.asarray(vals),
+                      nnz=jnp.asarray(nnz), dim=8)
+    params = JParams(t_th=jnp.asarray(0, jnp.int32),
+                     v_th=jnp.asarray(0.1, jnp.float32))
+
+    def sims_at(m):
+        return np.asarray(_scan(docs, jbuild(jnp.asarray(m), params),
+                                jnp.zeros((b,), bool), mode="esicp")["sims"])
+
+    sims = sims_at(means)
+    assign = sims.argmax(axis=1).astype(np.int32)
+    res = assignment_step("bounds", docs, jbuild(jnp.asarray(means), params),
+                          jnp.asarray(assign), jnp.asarray(sims.max(axis=1)),
+                          jnp.zeros((b,), bool))
+    ub = np.asarray(res.ub)
+    rng = np.random.default_rng(seed + 1)
+    new = means + scale * rng.normal(size=means.shape).astype(np.float32) \
+        * rng.random(k).astype(np.float32)[:, None]
+    new /= np.maximum(np.linalg.norm(new, axis=1, keepdims=True), 1e-9)
+    new_t, old_t = new.T.copy(), means.T.copy()
+    np.testing.assert_array_equal(
+        tup.column_dots(_t(new_t), _t(old_t)).numpy(),
+        np.asarray(jnp.sum(jnp.asarray(new_t) * jnp.asarray(old_t), axis=0)))
+    want = np.asarray(jup.group_drift(jnp.asarray(new_t), jnp.asarray(old_t)))
+    got = tup.group_drift(_t(new_t), _t(old_t)).numpy()
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    loose_j = np.asarray(jup.drift_loosen(jnp.asarray(ub), jnp.asarray(want)))
+    loose_t = tup.drift_loosen(_t(ub), _t(got)).numpy()
+    np.testing.assert_allclose(loose_t, loose_j, rtol=0, atol=1e-6)
+    # the true best non-assigned similarity of each (row, group) at the
+    # drifted means, as the bracket check takes it
+    true = np.array(sims_at(new), np.float64)
+    true[np.arange(b), assign] = -np.inf
+    g, gsz = jup.n_ub_groups(k), jup.ub_group_size(k)
+    true = np.pad(true, ((0, 0), (0, g * gsz - k)),
+                  constant_values=-np.inf).reshape(b, g, gsz).max(axis=2)
+    live = np.isfinite(loose_j) & np.isfinite(true)
+    gap_j, gap_t = np.full_like(true, -np.inf), np.full_like(true, -np.inf)
+    gap_j[live] = true[live] - loose_j[live]
+    gap_t[live] = true[live] - loose_t[live]
+    worst = np.unravel_index(gap_j.argmax(), gap_j.shape)
+    assert np.unravel_index(gap_t.argmax(), gap_t.shape) == worst
+    assert loose_t[worst] == loose_j[worst] and gap_t.max() == gap_j.max()
+
+
 @pytest.fixture(scope="module")
 def warm(small_corpus):
     """repro's state after two ES-ICP iterations on the shared corpus."""

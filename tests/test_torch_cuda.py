@@ -47,7 +47,11 @@ over two launches; at the ring's edges S = T - 1, T, T + 1, 3T + 5 for
 the kernel's tile of T steps, and 16,384; the last S of the short-scan
 walk and the first of the tiles; D not a multiple of the
 channel group, B·D below one group, D not a multiple of 4 and gates off
-16-byte alignment, both copied 4 bytes at a time) and
+16-byte alignment, both copied 4 bytes at a time), its backward bit for
+bit against the plain reverse loop (the walk's last S and the tiles'
+first, a tile and three tiles plus a step, D not a multiple of the
+block's channels with 16- and 4-byte copies, ties at step 0 from a cached
+state; two runs the same, adjoints carried over two launches) and
 the two SSM smoke configs (xlstm, zamba2) on the card against the CPU.
 This file imports neither JAX nor ``repro``."""
 import numpy as np
@@ -58,7 +62,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.slstm_scan import (  # noqa: E402
-    TILE as SLSTM_TILE, WALK_BELOW as SLSTM_WALK)
+    BWD_CHANNELS, BWD_TILE, BWD_WALK_BELOW, TILE as SLSTM_TILE,
+    WALK_BELOW as SLSTM_WALK)
 
 pytestmark = pytest.mark.cuda
 
@@ -1711,19 +1716,47 @@ def test_kernel_outputs_keep_the_gradient(dev):
         assert ops.slstm_scan(gates, z, z, z)[0].grad_fn is None
 
 
+_BT, _BW = BWD_TILE, BWD_WALK_BELOW
 SLSTM_BWD_SHAPES = [(2, 300, 100, False), (4, 1, 768, True),
-                    (3, 81, 36, True), (1, 5, 7, True), (2, 97, 64, False)]
+                    (3, 81, 36, True), (1, 5, 7, True), (2, 97, 64, False),
+                    # the walk's last S, the tiles' first, one step more
+                    (4, _BW - 1, 768, True), (4, _BW, 768, True),
+                    (4, _BW + 1, 768, True),
+                    # a tile and one step, three tiles and one step
+                    (2, _BT + 1, 768, False), (2, 3 * _BT + 1, 768, True),
+                    # D not a multiple of the block's channels (D % 4 == 0:
+                    # 16-byte copies of a partial group; else 4-byte ones)
+                    (3, 2 * _BT + 5, BWD_CHANNELS + 4, True),
+                    (2, 2 * _BT + 3, 50, True), (1, _BT + 7, 7, True),
+                    # a cached state with ties at step 0: f + m == i and
+                    # n' == 1, through the walk and through the tiles
+                    (2, _BW - 1, 96, "ties"), (2, 3 * _BT + 1, 96, "ties")]
+
+
+def _tie_step_0(gates, state):
+    """Even channels tie at step 0 from the cached state: m0 = 0 and f =
+    i make f + m == i (m' = i, ie = 1), and n0 = 0 makes n' = ie = 1."""
+    d = gates.shape[-1] // 4
+    c0, n0, m0 = (t.clone() for t in state)
+    gates = gates.clone()
+    m0.zero_()
+    n0[:, ::2] = 0.0
+    gates[:, 0, 2 * d:3 * d][:, ::2] = gates[:, 0, d:2 * d][:, ::2]
+    return gates, (c0, n0, m0)
 
 
 @pytest.mark.parametrize("b,s,d,cached", SLSTM_BWD_SHAPES)
 def test_slstm_scan_bwd_equals_plain(dev, b, s, d, cached):
     """The backward through ops.slstm_scan's autograd Function bit for bit
     against the plain reverse loop on the card, every input's gradient for
-    adjoints of hs and of the final (c, n, m); S/2 + S/2 with the adjoints
-    carried equals one launch."""
+    adjoints of hs and of the final (c, n, m); a second run gives the same
+    bits; S/2 + S/2 with the adjoints carried equals one launch."""
     from repro_torch.kernels import slstm_scan as kern
 
-    gates, state = _slstm_inputs(dev, b, s, d, 2.0, cached, seed=b + s + d)
+    gates, state = _slstm_inputs(dev, b, s, d, 2.0, bool(cached),
+                                 seed=b + s + d)
+    if cached == "ties":
+        gates, state = _tie_step_0(gates, state)
     gen = torch.Generator(device=dev).manual_seed(s)
     adj = (torch.randn((b, s, d), generator=gen, device=dev),
            *(torch.randn((b, d), generator=gen, device=dev)
@@ -1737,6 +1770,8 @@ def test_slstm_scan_bwd_equals_plain(dev, b, s, d, cached):
     assert not any(ops.PLAIN.values())
     want = ref.slstm_scan_bwd(gates, *state, *adj)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    again = torch.autograd.grad(ops.slstm_scan(*xs), xs, adj)
+    assert all(torch.equal(g, w) for g, w in zip(again, got))
     if s > 1:
         h = s // 2
 

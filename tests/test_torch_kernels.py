@@ -610,6 +610,40 @@ def test_slstm_scan_geometry_matches_the_cuda_source():
     assert kern.blocks(4, 768, s - 1) == 4 * 768 // 32
 
 
+def test_slstm_scan_bwd_geometry_matches_the_cuda_source():
+    """BWD_CHANNELS, BWD_WARPS, BWD_TILE and BWD_WALK_BELOW of
+    kernels/slstm_scan.py are the kChannels, kWarps, kTile and kWalkBelow
+    of csrc/slstm_scan_bwd.cu's namespace bwd, each defined there once, and
+    that source includes the forward's (its states launch): the card tests
+    the tiles' edges and the switch from the walk from the Python side."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import slstm_scan as kern
+
+    csrc = Path(kern.__file__).resolve().parent.parent / "csrc"
+    src = (csrc / "slstm_scan_bwd.cu").read_text()
+    assert re.findall(r'^#include "([^"]+)"', src, re.M) == ["slstm_scan.cu"]
+    body = src.split("namespace bwd {", 1)[1]
+    got = {}
+    for name in ("kChannels", "kWarps", "kTile", "kWalkBelow"):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert len(found) == 1 and found == re.findall(
+            rf"constexpr int {name} = (\d+);", body), (name, found)
+        got[name] = int(found[0])
+    assert got == {"kChannels": kern.BWD_CHANNELS, "kWarps": kern.BWD_WARPS,
+                   "kTile": kern.BWD_TILE,
+                   "kWalkBelow": kern.BWD_WALK_BELOW}
+    s = kern.BWD_WALK_BELOW
+    assert kern.bwd_blocks(2, 768, s) == 2 * 768 // kern.BWD_CHANNELS
+    assert kern.bwd_blocks(3, kern.BWD_CHANNELS + 1, s) == 6
+    assert kern.bwd_blocks(4, 768, s - 1) == 4 * 768 // 32
+    # the library's hash covers the included forward source
+    fwd = (csrc / "slstm_scan.cu").read_bytes()
+    assert _build.source_bytes(csrc / "slstm_scan_bwd.cu").endswith(fwd)
+
+
 def test_flash_attention_bwd_launches_match_the_cuda_source():
     """The three launches of csrc/flash_attention_bwd.cu are the kernels
     BWD_KERNELS of kernels/flash_attention.py names, in order: chip_smoke.py
